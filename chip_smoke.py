@@ -10,18 +10,28 @@ Phases, each of which raises on failure:
 2. build every kernel of the path from ``vbt_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once);
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes (B = 64 images, K = 512 candidates, float32), on random and
-   adversarial inputs and on the candidates of a real frame batch: counts
-   exact, scores within 1e-6, boxes within 1e-5;
-4. the main path: the shipped EfficientDet-Lite0 weights served in bf16 on
-   the card, 4 batches of 64 synthetic 720x1280 frames of a moving plate,
-   ``detect_batch`` -> ``detections_to_tracker_inputs`` -> host OC-SORT ->
-   ``tracks_to_data``, with every kernel's launch count read around it;
-5. the bf16 pipeline against an f32 one on the same card, and the f32 card
-   pipeline against the f32 CPU pipeline (plain versions) on two frames;
-6. each kernel's time beside its plain version's and its bound;
-7. where one batch's time goes: stage spans on the device stream, and the
-   device's busy share and time by kernel from ``torch.profiler``.
+   path's shapes. NMS (B = 64 images, K = 512 candidates, float32) on random
+   and adversarial inputs: counts exact, scores within 1e-6, boxes within
+   1e-5. Fused MBConv on the five blocks the turbo backbone fuses in
+   EfficientDet-Lite0 at 320 (B = 64) and the seven of Lite2 at 448
+   (B = 8), with the shipped folded weights, and on odd non-square blocks,
+   in float32 within 2e-4 and in bfloat16 within 2e-2, absolute plus
+   relative (``K2_TOL``);
+4. the main path, both backbones: the shipped EfficientDet-Lite0 weights
+   served in bf16 on the card, 4 batches of 64 synthetic 720x1280 frames of
+   a moving plate, ``detect_batch`` -> ``detections_to_tracker_inputs`` ->
+   host OC-SORT -> ``tracks_to_data``, with every kernel's launch count set
+   to 0 before and read after each lane: the XLA lane launches NMS 4 times,
+   the turbo lane NMS 4 times and fused MBConv 20 times;
+5. the bf16 pipeline against an f32 one on the same card, the f32 card
+   pipeline against the f32 CPU pipeline (plain versions) on two frames, and
+   the f32 turbo pipeline against the f32 XLA pipeline on the card;
+6. each kernel's time beside its plain version's and its bound; for fused
+   MBConv per lite0 block, also the port's unfused block (cuDNN convs);
+7. where one batch's time goes, for each backbone: the forward's device
+   time (CUDA events over 10 calls on one preprocessed batch), stage spans
+   on the device stream, and the device's busy share and time by kernel
+   from ``torch.profiler``.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -29,6 +39,7 @@ The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import subprocess
@@ -37,12 +48,20 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "models", "efficientdet_lite0_whole.msgpack")
+LITE2_CKPT = os.path.join(REPO, "models", "efficientdet_lite2_whole.msgpack")
 BATCH, BATCHES, HEIGHT, WIDTH = 64, 4, 720, 1280
+LITE2_BATCH = 8
 K, D = 512, 25
 SCORE_ATOL, BOX_ATOL = 1e-6, 1e-5
+# Fused MBConv against its plain version, absolute plus relative. float32:
+# the 1x1 products are summed in another order (FMA loops vs cuBLAS).
+# bfloat16: that order can flip the bf16 rounding of one expanded or
+# depthwise value (one step is 2^-8 relative), which the later sums carry.
+K2_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 
 
 def _nvidia_smi() -> str:
@@ -119,6 +138,91 @@ def _hold_nms(label, logits, boxes, **kw) -> float:
     return max(ds, db)
 
 
+def _fused_blocks(ckpt, dtype, dev):
+    """(name, FusedBlockParams on ``dev``, the f32 ``MBConvBlock``) for every
+    block the turbo backbone fuses at the model's input size, with the
+    checkpoint's weights folded as the served pipeline folds them."""
+    from vbt_tpu_torch.models.efficientdet import EfficientDet
+    from vbt_tpu_torch.models.turbo import TurboBackbone
+    from vbt_tpu_torch.ops.fused_mbconv import FusedBlockParams
+    from vbt_tpu_torch.runtime.checkpoint import load_checkpoint, load_into
+    from vbt_tpu_torch.runtime.pipeline import resolve_model
+
+    spec, path = resolve_model(ckpt)
+    model = load_into(EfficientDet(spec), load_checkpoint(path)).eval()
+    turbo = TurboBackbone(model.backbone, (spec.input_size, spec.input_size), dtype, dev)
+    return [(name, step, getattr(model.backbone, name)) for _, name, step in turbo.steps
+            if isinstance(step, FusedBlockParams)]
+
+
+def _block_input(p, b, dtype, gen, dev):
+    import torch
+
+    cin = p.we.shape[1] if p.has_expand else p.wd.shape[0]
+    return torch.randn(b, cin, p.h * p.w, generator=gen).to(dev, dtype)
+
+
+def _odd_blocks(gen, dtype, dev):
+    """Random blocks with ragged channels and non-square odd sizes: stride 2
+    k5, stride 1 k3 with a residual, and one without expand."""
+    import torch
+    from vbt_tpu_torch.ops.fused_mbconv import FusedBlockParams
+
+    def r(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, dt)
+
+    out = []
+    for label, cin, cmid, cout, h, w, k, s, expand in [
+        ("odd_s2_k5", 5, 37, 7, 37, 23, 5, 2, True),
+        ("odd_s1_k3_residual", 24, 144, 24, 19, 45, 3, 1, True),
+        ("odd_no_expand", 16, 16, 16, 21, 13, 3, 1, False),
+    ]:
+        p = FusedBlockParams(
+            we=r(cmid, cin, scale=0.3, dt=dtype) if expand else None,
+            be=r(cmid, 1) if expand else None, wd=r(cmid, k * k, scale=0.5), bd=r(cmid, 1),
+            wp=r(cout, cmid, scale=0.2, dt=dtype), bp=r(cout, 1), h=h, w=w, kernel=k, stride=s,
+            residual=s == 1 and cin == cout)
+        out.append((label, p))
+    return out
+
+
+def _hold_k2(label, x, p, dtype_name) -> float:
+    """Kernel vs plain version on the card; returns the max abs difference."""
+    import torch
+    from vbt_tpu_torch.ops.fused_mbconv import fused_mbconv, fused_mbconv_plain
+
+    got = fused_mbconv(x, p)
+    torch.cuda.synchronize()
+    want = fused_mbconv_plain(x, p).float()
+    got = got.float()
+    diff = (got - want).abs()
+    tol = K2_TOL[dtype_name]
+    worst = (diff / (1.0 + want.abs())).max().item()
+    if not torch.isfinite(got).all() or worst > tol:
+        raise AssertionError(f"fused_mbconv {label} {dtype_name}: |d| / (1 + |want|) reaches "
+                             f"{worst:.3g} > {tol} (max |d| {diff.max().item():.3g})")
+    print(f"fused_mbconv vs plain [{label} {dtype_name} B={x.shape[0]} {p.h}x{p.w} "
+          f"k{p.kernel} s{p.stride}]: max |d| {diff.max().item():.3g}, "
+          f"max |d|/(1+|want|) {worst:.3g}")
+    return diff.max().item()
+
+
+def _k2_work(x, p) -> tuple[int, int, int]:
+    """(bytes, 1x1 flops, depthwise flops) one fused block needs: x read
+    once, weights read once, the output written once; the expand over every
+    input position, the depthwise and project over every output position."""
+    b = x.shape[0]
+    cmid, cout = p.wd.shape[0], p.wp.shape[0]
+    cin = x.shape[1]
+    ho, wo = p.out_hw
+    weights = [t for t in (p.we, p.be, p.wd, p.bd, p.wp, p.bp) if t is not None]
+    n_bytes = (x.numel() + b * cout * ho * wo) * x.element_size()
+    n_bytes += sum(t.numel() * t.element_size() for t in weights)
+    mm = 2 * b * (p.h * p.w * cin * cmid * p.has_expand + ho * wo * cmid * cout)
+    dw = 2 * b * ho * wo * cmid * p.kernel ** 2
+    return n_bytes, mm, dw
+
+
 def _candidates(pipe, frames):
     """The NMS kernel's inputs on the main path for one frame batch."""
     from vbt_tpu_torch.ops.postprocess import gather_decode, top_k_candidates
@@ -127,6 +231,49 @@ def _candidates(pipe, frames):
     top_logits, idx = top_k_candidates(logits[..., 0].float(), K)
     boxes = gather_decode(deltas, pipe.anchors, idx, pipe.spec.input_size)
     return top_logits.contiguous(), boxes.contiguous()
+
+
+def _main_path(lane, pipe, frames, kernels, want_launches) -> tuple[float, dict]:
+    """Drive one backbone's main path with every count at 0; check the
+    launches and the tracks. Returns (detect frames/s, launches by kernel)."""
+    import numpy as np
+    import torch
+    from vbt_tpu_torch.cli.track import run_host_tracker, tracks_to_data
+
+    if pipe.dtype != torch.bfloat16 or not pipe.use_kernel:
+        raise AssertionError(f"{lane}: served lane is {pipe.dtype}, use_kernel={pipe.use_kernel}")
+    pipe.detect_batch(frames[:BATCH])  # warm-up: cuDNN plans, first launches
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rows, valid = [], []
+    for i in range(BATCHES):
+        det = pipe.detect_batch(frames[i * BATCH:(i + 1) * BATCH])
+        r, v = pipe.detections_to_tracker_inputs(det, 0.5)
+        rows.append(r)
+        valid.append(v)
+    t_detect = time.perf_counter() - t0
+    rows, valid = np.concatenate(rows), np.concatenate(valid)
+    tracks = run_host_tracker(rows, valid)
+    data = tracks_to_data(tracks, fps=30.0)
+    t_path = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"main path [{lane}]: launches {launches}")
+    if launches != want_launches:
+        raise AssertionError(f"{lane}: launches {launches}, want {want_launches}")
+    if rows.shape != (BATCH * BATCHES, D, 6) or not np.isfinite(rows).all():
+        raise AssertionError(f"{lane}: tracker rows {rows.shape} not finite or misshapen")
+    if not valid[:, 0].all():
+        raise AssertionError(f"{lane}: the plate was missed in {int((~valid[:, 0]).sum())} frames")
+    n_rows = len(data["id"])
+    if n_rows < BATCH * BATCHES - 2 or not all(np.isfinite(data[c]).all() for c in data):
+        raise AssertionError(f"{lane}: track data has {n_rows} rows or non-finite values")
+    ids = sorted(set(data["id"]))
+    print(f"main path [{lane}]: {frames.shape[0]} frames, {n_rows} track rows, ids {ids}; "
+          f"detect {t_detect:.3f} s ({frames.shape[0] / t_detect:.1f} frames/s), "
+          f"host tracker+rows {t_path - t_detect:.3f} s, whole {t_path:.3f} s")
+    return frames.shape[0] / t_detect, launches
 
 
 def _stage_spans(pipe, frames) -> dict:
@@ -146,7 +293,7 @@ def _stage_spans(pipe, frames) -> dict:
         events[1].record()
         images = preprocess_frames(x, pipe.spec.input_size, pipe.dtype)
         events[2].record()
-        deltas, logits = pipe.model(images)
+        deltas, logits = pipe.run_model(images)
         events[3].record()
         top_logits, idx = top_k_candidates(logits[..., 0].float(), K)
         boxes = gather_decode(deltas, pipe.anchors, idx, pipe.spec.input_size)
@@ -159,7 +306,7 @@ def _stage_spans(pipe, frames) -> dict:
     return {n: events[i].elapsed_time(events[i + 1]) for i, n in enumerate(names)}
 
 
-def _profile(pipe, batches) -> None:
+def _profile(lane, pipe, batches) -> None:
     """The device's busy share and its time by kernel over ``detect_batch``
     plus readback of ``batches``, from the device events of
     ``torch.profiler`` (the host clock inside the profiled region, which the
@@ -178,7 +325,7 @@ def _profile(pipe, batches) -> None:
              if e.device_type == torch.autograd.DeviceType.CUDA
              and not e.name.startswith("Activity Buffer")]
     if not spans:
-        print("profile: the profiler recorded no device time (not measured)")
+        print(f"profile [{lane}]: the profiler recorded no device time (not measured)")
         return
     busy_us, end = 0.0, float("-inf")
     by_name: dict[str, list] = {}
@@ -188,14 +335,13 @@ def _profile(pipe, batches) -> None:
         acc = by_name.setdefault(name, [0.0, 0])
         acc[0] += stop - start
         acc[1] += 1
-    print(f"profile over {len(batches)} batches: host window {wall_us / 1e3:.2f} ms, "
+    print(f"profile [{lane}] over {len(batches)} batches: host window {wall_us / 1e3:.2f} ms, "
           f"device busy {busy_us / 1e3:.2f} ms, idle share {1 - busy_us / wall_us:.3f}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {us / 1e3:9.3f} ms {us / busy_us:6.1%} x{n:<5d} {name[:90]}")
 
 
 def main() -> int:
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -203,15 +349,18 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from vbt_tpu_torch.cli.track import run_host_tracker, tracks_to_data
     from vbt_tpu_torch.io.synthetic import plate_frames
     from vbt_tpu_torch.ops import _build
+    from vbt_tpu_torch.ops.fused_mbconv import fused_mbconv, fused_mbconv_plain
     from vbt_tpu_torch.ops.nms_cuda import nms
     from vbt_tpu_torch.ops.postprocess import nms_plain
+    from vbt_tpu_torch.ops.preprocess import preprocess_frames
     from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
+    from vbt_tpu_torch.utils.device import resolve_device
 
     t_all = time.perf_counter()
     # 1. The card.
+    dev = resolve_device("cuda")  # also the f32 policy: TF32 off for matmul and cuDNN
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(_nvidia_smi())
@@ -221,55 +370,43 @@ def main() -> int:
     built = _build.build_all()
     print(f"built {built} in {time.perf_counter() - t0:.2f} s")
 
-    # 3. Kernel vs plain version at the main-path shapes.
-    dev = torch.device("cuda", 0)
+    # 3. Each kernel vs its plain version at the main-path shapes.
     gen = torch.Generator().manual_seed(0)
-    max_err = 0.0
+    nms_err = 0.0
     for label, logits, boxes, kw in _nms_cases(gen, dev):
-        max_err = max(max_err, _hold_nms(label, logits, boxes, **kw))
+        nms_err = max(nms_err, _hold_nms(label, logits, boxes, **kw))
+    k2_err = {"float32": 0.0, "bfloat16": 0.0}
+    k2_timing_inputs = []  # lite0's fused blocks in bf16 at B = 64, timed in phase 6
+    for dtype_name, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        groups = [("lite0", BATCH, _fused_blocks(CKPT, dtype, dev)),
+                  ("lite2", LITE2_BATCH, _fused_blocks(LITE2_CKPT, dtype, dev))]
+        for model, b, blocks in groups:
+            for name, p, block in blocks:
+                x = _block_input(p, b, dtype, gen, dev)
+                err = _hold_k2(f"{model} {name}", x, p, dtype_name)
+                k2_err[dtype_name] = max(k2_err[dtype_name], err)
+                if model == "lite0" and dtype == torch.bfloat16:
+                    k2_timing_inputs.append((name, x, p, block))
+        for label, p in _odd_blocks(gen, dtype, dev):
+            x = _block_input(p, 3, dtype, gen, dev)
+            k2_err[dtype_name] = max(k2_err[dtype_name], _hold_k2(label, x, p, dtype_name))
 
-    # 4. The main path, bf16 on the card.
+    # 4. The main path, bf16 on the card, each backbone with the counts at 0.
     t0 = time.perf_counter()
     frames = plate_frames(BATCH * BATCHES, HEIGHT, WIDTH, seed=0)
     print(f"made {frames.shape[0]} frames {HEIGHT}x{WIDTH} in {time.perf_counter() - t0:.2f} s")
+    kernels = {"nms": nms, "fused_mbconv": fused_mbconv}
     pipe = DetectionPipeline.from_model_arg(CKPT, device="cuda")
-    if pipe.dtype != torch.bfloat16 or not pipe.use_kernel:
-        raise AssertionError(f"served lane is {pipe.dtype}, use_kernel={pipe.use_kernel}")
-    pipe.detect_batch(frames[:BATCH])  # warm-up: cuDNN plans, first launches
-    torch.cuda.synchronize()
-    kernels = {"nms": nms}
-    for fn in kernels.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    rows, valid = [], []
-    for i in range(BATCHES):
-        det = pipe.detect_batch(frames[i * BATCH:(i + 1) * BATCH])
-        r, v = pipe.detections_to_tracker_inputs(det, 0.5)
-        rows.append(r)
-        valid.append(v)
-    t_detect = time.perf_counter() - t0
-    rows, valid = np.concatenate(rows), np.concatenate(valid)
-    tracks = run_host_tracker(rows, valid)
-    data = tracks_to_data(tracks, fps=30.0)
-    t_path = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    print(f"main path: launches {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    if rows.shape != (BATCH * BATCHES, D, 6) or not np.isfinite(rows).all():
-        raise AssertionError(f"tracker rows {rows.shape} not finite or misshapen")
-    if not valid[:, 0].all():
-        raise AssertionError(f"the plate was missed in {int((~valid[:, 0]).sum())} frames")
-    n_rows = len(data["id"])
-    if n_rows < BATCH * BATCHES - 2 or not all(np.isfinite(data[c]).all() for c in data):
-        raise AssertionError(f"track data has {n_rows} rows or non-finite values")
-    ids = sorted(set(data["id"]))
-    print(f"main path: {frames.shape[0]} frames, {n_rows} track rows, ids {ids}; "
-          f"detect {t_detect:.3f} s ({frames.shape[0] / t_detect:.1f} frames/s), "
-          f"host tracker+rows {t_path - t_detect:.3f} s, whole {t_path:.3f} s")
+    fps_xla, seen_xla = _main_path("xla", pipe, frames, kernels,
+                                   {"nms": BATCHES, "fused_mbconv": 0})
+    turbo = DetectionPipeline.from_model_arg(CKPT, device="cuda", backbone="turbo")
+    n_fused = len(turbo.turbo.fused_names)
+    fps_turbo, seen_turbo = _main_path("turbo", turbo, frames, kernels,
+                                       {"nms": BATCHES, "fused_mbconv": n_fused * BATCHES})
+    print(f"detect throughput, bf16, B = {BATCH}: xla {fps_xla:.1f} frames/s, "
+          f"turbo {fps_turbo:.1f} frames/s ({n_fused} fused blocks: {turbo.turbo.fused_names})")
 
-    # 5. bf16 vs f32 on the card; f32 card (kernel) vs f32 CPU (plain).
+    # 5. bf16 vs f32 on the card; f32 card vs f32 CPU; f32 turbo vs f32 XLA.
     small = frames[:BATCH]
     pipe32 = DetectionPipeline.from_model_arg(CKPT, device="cuda", dtype=torch.float32)
     l16 = pipe.forward(small)[1].float()
@@ -289,10 +426,27 @@ def main() -> int:
     # logits and 1e-4 on normalized boxes leave room for that and no more.
     if not torch.equal(dc.count, dg.count.cpu()) or dl_cpu > 1e-3 or db_cpu > 1e-4:
         raise AssertionError("the f32 card pipeline disagrees with the CPU pipeline")
+    turbo32 = DetectionPipeline.from_model_arg(CKPT, device="cuda", dtype=torch.float32,
+                                               backbone="turbo")
+    lt32 = turbo32.forward(small)[1]
+    dt32, dt16 = turbo32.detect_batch(small), turbo.detect_batch(small)
+    dl_turbo = (lt32 - l32).abs().max().item()
+    db_turbo = (dt32.boxes[:, 0] - d32.boxes[:, 0]).abs().max().item()
+    db_turbo16 = (dt16.boxes[:, 0] - d32.boxes[:, 0]).abs().max().item()
+    print(f"f32 turbo vs f32 xla on the card: counts equal "
+          f"{torch.equal(dt32.count, d32.count)}, max |d logit| {dl_turbo:.4g}, "
+          f"max |d top box| {db_turbo:.4g}; bf16 turbo vs f32 xla: max |d top box| "
+          f"{db_turbo16:.4g}")
+    # Same f32 model, the fused blocks' sums in another order: the same bounds
+    # as the card against the CPU.
+    if not torch.equal(dt32.count, d32.count) or dl_turbo > 1e-3 or db_turbo > 1e-4:
+        raise AssertionError("the f32 turbo pipeline disagrees with the f32 XLA pipeline")
+    if db_turbo16 > 0.05:
+        raise AssertionError("bf16 turbo top boxes drift more than 0.05 of the frame from f32")
 
     # 6. Kernel time at the main-path inputs, beside the plain version and the bound.
     logits_k, boxes_k = _candidates(pipe, small)
-    max_err = max(max_err, _hold_nms("main_path_batch", logits_k, boxes_k))
+    nms_err = max(nms_err, _hold_nms("main_path_batch", logits_k, boxes_k))
     count = nms(logits_k, boxes_k)[0]
     ms = _cuda_ms(lambda: nms(logits_k, boxes_k), reps=200)
     plain_ms = _cuda_ms(lambda: nms_plain(logits_k, boxes_k), reps=10)
@@ -302,14 +456,13 @@ def main() -> int:
     # argmax compare and the IoU test per candidate (14 ops).
     n_ops = b * k * 7 + int(count.sum().item()) * k * 14
     byte_ms, op_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
-    record = {
+    nms_record = {
         "name": "nms",
         "route": "cuda",
         "source": "vbt_tpu_torch/csrc/nms.cu",
         "replaces": "vbt_tpu/ops/nms_pallas.py:71",
-        "launches": launches["nms"],
-        "max_abs_err": max_err,
-        "max_abs_diff_vs_plain": max_err,
+        "launches": seen_xla["nms"],
+        "max_abs_err": nms_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": max(byte_ms, op_ms),
@@ -317,15 +470,84 @@ def main() -> int:
         "library_ms": None,
     }
     print(f"nms: {ms * 1e3:.2f} us/launch, plain {plain_ms:.3f} ms, bound "
-          f"{record['bound_ms'] * 1e3:.3f} us ({record['bound_by']}); "
+          f"{nms_record['bound_ms'] * 1e3:.3f} us ({nms_record['bound_by']})")
+
+    shapes, totals = [], {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0, "bytes": 0, "mm": 0,
+                          "dw": 0}
+    for name, x, p, block in k2_timing_inputs:
+        b = x.shape[0]
+        ms = _cuda_ms(lambda: fused_mbconv(x, p), reps=20)
+        plain_ms = _cuda_ms(lambda: fused_mbconv_plain(x, p), reps=3, warmup=1)
+        # The yardstick: the port's unfused block (cuDNN convs, BN, ReLU6) on
+        # the same input, channels-last as the XLA lane runs it, and NCHW.
+        unfused = copy.deepcopy(block).to(dev, torch.bfloat16)
+        x4 = x.reshape(b, x.shape[1], p.h, p.w)
+        x4_cl = x4.contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            unfused_ms = _cuda_ms(lambda: unfused(x4_cl), reps=20)
+            unfused_nchw_ms = _cuda_ms(lambda: unfused(x4), reps=20)
+        n_bytes, mm, dw = _k2_work(x, p)
+        byte_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        op_ms = (mm / BF16_TENSOR_OPS_PER_S + dw / F32_OPS_PER_S) * 1e3
+        cin, cmid, cout = x.shape[1], p.wd.shape[0], p.wp.shape[0]
+        shapes.append({
+            "block": name, "batch": b, "hw": [p.h, p.w], "channels": [cin, cmid, cout],
+            "kernel": p.kernel, "stride": p.stride, "ms": ms, "plain_ms": plain_ms,
+            "unfused_ms": unfused_ms, "unfused_nchw_ms": unfused_nchw_ms,
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations", "mbytes": n_bytes / 1e6,
+        })
+        print(f"fused_mbconv {name} B={b} {p.h}x{p.w} {cin}->{cmid}->{cout} k{p.kernel} "
+              f"s{p.stride}: {ms:.4f} ms, unfused torch block {unfused_ms:.4f} ms "
+              f"(NCHW {unfused_nchw_ms:.4f} ms), plain "
+              f"{plain_ms:.3f} ms, bound {max(byte_ms, op_ms) * 1e3:.2f} us (bytes "
+              f"{byte_ms * 1e3:.2f} us for {n_bytes / 1e6:.1f} MB, operations "
+              f"{op_ms * 1e3:.2f} us)")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("unfused_ms", unfused_ms),
+                         ("bytes", n_bytes), ("mm", mm), ("dw", dw)):
+            totals[key] += val
+    byte_ms = totals["bytes"] / HBM_BYTES_PER_S * 1e3
+    op_ms = (totals["mm"] / BF16_TENSOR_OPS_PER_S + totals["dw"] / F32_OPS_PER_S) * 1e3
+    # One 64-frame batch runs the fused blocks once each: the record's times
+    # are the sums over those launches.
+    k2_record = {
+        "name": "fused_mbconv",
+        "route": "cuda",
+        "source": "vbt_tpu_torch/csrc/fused_mbconv.cu",
+        "replaces": "vbt_tpu/ops/fused_mbconv.py:87",
+        "launches": seen_turbo["fused_mbconv"],
+        "max_abs_err": max(k2_err.values()),
+        "max_abs_err_f32": k2_err["float32"],
+        "ms": totals["ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+        "library_ms": None,
+        "unfused_ms": totals["unfused_ms"],
+        "per": f"the {len(shapes)} fused blocks of one {BATCH}-frame batch, bf16",
+        "shapes": shapes,
+    }
+    print(f"fused_mbconv per {BATCH}-frame batch ({len(shapes)} launches): {totals['ms']:.4f} ms, "
+          f"unfused torch blocks {totals['unfused_ms']:.4f} ms, plain {totals['plain_ms']:.3f} ms, "
+          f"bound {k2_record['bound_ms'] * 1e3:.2f} us ({k2_record['bound_by']}); "
           f"whole run {time.perf_counter() - t_all:.1f} s")
 
-    # 7. Where the time of one 64-frame batch goes.
-    spans = [_stage_spans(pipe, frames[i * BATCH:(i + 1) * BATCH]) for i in range(3)]
-    print("stage spans on the device stream, ms, 3 batches: " + ", ".join(
-        f"{n} {sorted(s[n] for s in spans)[1]:.3f}" for n in spans[0]))
-    _profile(pipe, [frames[i * BATCH:(i + 1) * BATCH] for i in range(2)])
-    print(json.dumps({"kernels": [record]}))
+    # 7. Where the time of one 64-frame batch goes, each backbone.
+    with torch.inference_mode():
+        images = preprocess_frames(pipe._frames(small), pipe.spec.input_size, pipe.dtype)
+        fwd = {lane: _cuda_ms(lambda: lane_pipe.run_model(images), reps=10)
+               for lane, lane_pipe in (("xla", pipe), ("turbo", turbo))}
+    print(f"forward on the device, bf16, B = {BATCH}, mean of 10: xla "
+          f"{fwd['xla']:.3f} ms, turbo {fwd['turbo']:.3f} ms")
+    for lane, lane_pipe in (("xla", pipe), ("turbo", turbo)):
+        spans = [_stage_spans(lane_pipe, frames[i * BATCH:(i + 1) * BATCH])
+                 for i in range(min(3, BATCHES))]
+        print(f"stage spans [{lane}] on the device stream, ms, median of {len(spans)} batches: "
+              + ", ".join(f"{n} {sorted(s[n] for s in spans)[len(spans) // 2]:.3f}"
+                          for n in spans[0]))
+        _profile(lane, lane_pipe, [frames[i * BATCH:(i + 1) * BATCH] for i in range(2)])
+    print(f"whole run {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"kernels": [nms_record, k2_record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,12 +1,17 @@
-"""Tests that need a CUDA card: the NMS kernel against its plain version on
-the card, and the served bf16 pipeline launching it.
+"""Tests that need a CUDA card: the NMS and fused-MBConv kernels against
+their plain versions on the card, and the served bf16 pipelines (XLA and
+turbo backbones) launching them.
 
 They skip without a card. On the machine with one, run them without the
 JAX test configuration (this file imports neither jax nor vbt_tpu):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances are the kernel's contract: counts exact, scores 1e-6, boxes 1e-5.
+Tolerances are the kernels' contracts. NMS: counts exact, scores 1e-6,
+boxes 1e-5. Fused MBConv: 2e-4 absolute plus relative in float32 (f32 sums
+in another order); 2e-2 absolute plus relative in bfloat16, where the other
+order can flip the bf16 rounding of an intermediate (one step is 2^-8
+relative).
 """
 
 import os
@@ -99,4 +104,68 @@ def test_served_pipeline_launches_kernel(dev):
     det = pipe.detect_batch(plate_frames(8, 240, 320, seed=3))
     rows, valid = pipe.detections_to_tracker_inputs(det, 0.5)
     assert nms.launches == before + 1
+    assert valid[:, 0].all() and np.isfinite(rows).all()
+
+
+# (Cin, Cmid, Cout, H, W, k, stride): lite0's g1_b1 (stride 1, residual) and
+# g1_b0 (stride 2) at 320, as the turbo backbone runs them.
+K2_SHAPES = [(24, 144, 24, 80, 80, 3, 1), (16, 96, 24, 160, 160, 3, 2)]
+K2_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+def _k2_case(dev, shape, dtype, b=4):
+    from vbt_tpu_torch.ops.fused_mbconv import FusedBlockParams
+
+    cin, cmid, cout, h, w, k, s = shape
+    rng = np.random.default_rng(1)
+
+    def r(*sh, scale=1.0, dt=torch.float32):
+        return torch.from_numpy((rng.normal(size=sh) * scale).astype(np.float32)).to(dev, dt)
+
+    p = FusedBlockParams(we=r(cmid, cin, scale=0.3, dt=dtype), be=r(cmid, 1),
+                         wd=r(cmid, k * k, scale=0.5), bd=r(cmid, 1),
+                         wp=r(cout, cmid, scale=0.2, dt=dtype), bp=r(cout, 1), h=h, w=w,
+                         kernel=k, stride=s, residual=s == 1 and cin == cout)
+    return r(b, cin, h * w, dt=dtype), p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_fused_mbconv_kernel_matches_plain(dev, shape, dtype):
+    from vbt_tpu_torch.ops.fused_mbconv import fused_mbconv, fused_mbconv_plain
+
+    x, p = _k2_case(dev, shape, dtype)
+    before = fused_mbconv.launches
+    got = fused_mbconv(x, p)
+    torch.cuda.synchronize()
+    assert fused_mbconv.launches == before + 1
+    want = fused_mbconv_plain(x, p)
+    assert got.shape == want.shape and got.dtype == dtype
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= K2_TOL[dtype] * (1 + want.float().abs())).all()), diff.max().item()
+
+
+def test_fused_mbconv_kernel_rejects_what_it_cannot_take(dev):
+    from vbt_tpu_torch.ops.fused_mbconv import fused_mbconv
+
+    x, p = _k2_case(dev, K2_SHAPES[0], torch.bfloat16)
+    with pytest.raises(ValueError):
+        fused_mbconv(x.cpu(), p)  # weights on the card, x on the CPU
+    xt = x.reshape(4, 24, 80, 80).transpose(2, 3)  # NCHW shape, not contiguous
+    with pytest.raises(ValueError):
+        fused_mbconv(xt, p)
+
+
+def test_turbo_pipeline_launches_both_kernels(dev):
+    from vbt_tpu_torch.io.synthetic import plate_frames
+    from vbt_tpu_torch.ops.fused_mbconv import fused_mbconv
+    from vbt_tpu_torch.ops.nms_cuda import nms
+    from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
+
+    pipe = DetectionPipeline.from_model_arg(CKPT, device=dev, backbone="turbo")
+    assert pipe.dtype == torch.bfloat16 and len(pipe.turbo.fused_names) == 5
+    k2, k1 = fused_mbconv.launches, nms.launches
+    det = pipe.detect_batch(plate_frames(8, 240, 320, seed=3))
+    rows, valid = pipe.detections_to_tracker_inputs(det, 0.5)
+    assert fused_mbconv.launches == k2 + 5 and nms.launches == k1 + 1
     assert valid[:, 0].all() and np.isfinite(rows).all()

@@ -33,6 +33,16 @@ def pad_same(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0) -> t
     return F.pad(x, (left, right, top, bottom), value=value)
 
 
+def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
+                stride: int = 1, groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` with XLA SAME padding on NCHW ``x`` and an OIHW weight."""
+    kernel = weight.shape[-1]
+    if stride == 1 and kernel % 2 == 1:
+        # Symmetric SAME: let the conv pad (saves a copy of x).
+        return F.conv2d(x, weight, bias, 1, kernel // 2, 1, groups)
+    return F.conv2d(pad_same(x, kernel, stride), weight, bias, stride, 0, 1, groups)
+
+
 class Conv2dSame(nn.Module):
     """Conv with XLA SAME padding; ``groups == in_ch`` gives a depthwise conv.
 
@@ -49,11 +59,7 @@ class Conv2dSame(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.stride == 1 and self.kernel % 2 == 1:
-            # Symmetric SAME: let the conv pad (saves a copy of x).
-            return F.conv2d(x, self.weight, self.bias, 1, self.kernel // 2, 1, self.groups)
-        x = pad_same(x, self.kernel, self.stride)
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0, 1, self.groups)
+        return conv2d_same(x, self.weight, self.bias, self.stride, self.groups)
 
 
 class BatchNorm(nn.Module):

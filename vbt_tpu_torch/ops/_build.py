@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vbt_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("nms",)  # csrc/<name>.cu -> build/vbt_tpu_torch/lib<name>.so
+SOURCES = ("nms", "fused_mbconv")  # csrc/<name>.cu -> build/vbt_tpu_torch/lib<name>.so
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

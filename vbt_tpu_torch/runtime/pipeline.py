@@ -10,6 +10,10 @@ Serving policy (:func:`serving_config`): on CUDA, bf16 with the NMS kernel
 (``use_kernel``, always for a single-class model); on the CPU, f32 with
 the plain class-aware postprocess, as the JAX package served f32 with its
 XLA path on the CPU.
+
+``backbone="turbo"`` runs the backbone as :class:`TurboBackbone` (fused
+MBConv blocks: the CUDA kernel on the card, its plain version on the CPU)
+instead of the module's convolutions; the rest of the path is the same.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from vbt_tpu_torch.models import EfficientDet, ModelSpec, get_model_spec
 from vbt_tpu_torch.models.anchors import generate_anchors
+from vbt_tpu_torch.models.turbo import TurboBackbone, turbo_forward
 from vbt_tpu_torch.ops.nms_cuda import detection_postprocess_cuda
 from vbt_tpu_torch.ops.postprocess import Detections, detection_postprocess
 from vbt_tpu_torch.ops.preprocess import preprocess_frames
@@ -28,6 +33,7 @@ from vbt_tpu_torch.runtime.checkpoint import load_checkpoint, load_into
 from vbt_tpu_torch.utils.device import resolve_device, serving_dtype
 
 MAX_DETECTIONS = 25  # the TFLite postprocess contract
+BACKBONES = ("xla", "turbo")  # the JAX package's names: module convolutions, fused blocks
 
 
 def serving_config(device: str | torch.device = "cuda") -> tuple[torch.device, torch.dtype]:
@@ -55,7 +61,10 @@ class DetectionPipeline:
     """A model with its weights resident on one device, and batch detection."""
 
     def __init__(self, spec: ModelSpec, state_dict: dict,
-                 device: str | torch.device = "cuda", dtype: torch.dtype | None = None):
+                 device: str | torch.device = "cuda", dtype: torch.dtype | None = None,
+                 backbone: str = "xla"):
+        if backbone not in BACKBONES:
+            raise ValueError(f"backbone must be one of {BACKBONES}, got {backbone!r}")
         self.spec = spec
         self.device, default_dtype = serving_config(device)
         self.dtype = default_dtype if dtype is None else dtype
@@ -63,18 +72,23 @@ class DetectionPipeline:
         self.use_kernel = self.device.type == "cuda" and spec.num_classes == 1
         model = EfficientDet(spec)
         load_into(model, state_dict)
+        # Folded from the f32 weights, before the model is cast to the working dtype.
+        self.turbo = (TurboBackbone(model.backbone, (spec.input_size, spec.input_size),
+                                    self.dtype, self.device)
+                      if backbone == "turbo" else None)
         self.model = model.eval().to(device=self.device, dtype=self.dtype)
         self.anchors = torch.from_numpy(generate_anchors(spec.anchor_config)).to(self.device)
 
     @classmethod
     def from_model_arg(cls, model: str, device: str | torch.device = "cuda",
-                       dtype: torch.dtype | None = None) -> "DetectionPipeline":
+                       dtype: torch.dtype | None = None,
+                       backbone: str = "xla") -> "DetectionPipeline":
         spec, ckpt = resolve_model(model)
         if ckpt is None:
             raise FileNotFoundError(
                 f"No trained weights found for --model {model!r}: expected a "
                 f".msgpack checkpoint at that path or a sibling of it.")
-        return cls(spec, load_checkpoint(ckpt), device=device, dtype=dtype)
+        return cls(spec, load_checkpoint(ckpt), device=device, dtype=dtype, backbone=backbone)
 
     # -- inference ------------------------------------------------------------
     def _frames(self, frames) -> torch.Tensor:
@@ -87,6 +101,12 @@ class DetectionPipeline:
     def forward(self, frames) -> tuple[torch.Tensor, torch.Tensor]:
         """uint8 (B, H, W, 3) -> head outputs (deltas, logits) in ``dtype``."""
         images = preprocess_frames(self._frames(frames), self.spec.input_size, self.dtype)
+        return self.run_model(images)
+
+    def run_model(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Normalized NCHW images -> (deltas, logits), through the chosen backbone."""
+        if self.turbo is not None:
+            return turbo_forward(self.model, self.turbo, images)
         return self.model(images)
 
     @torch.inference_mode()
