@@ -8,10 +8,11 @@ JAX test configuration (this file imports neither jax nor vbt_tpu):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances are the kernels' contracts. NMS: counts exact, scores 1e-6,
-boxes 1e-5. Fused MBConv: 2e-4 absolute plus relative in float32 (f32 sums
-in another order); 2e-2 absolute plus relative in bfloat16, where the other
-order can flip the bf16 rounding of an intermediate (one step is 2^-8
-relative).
+boxes 1e-5. Fused MBConv: 2e-4
+absolute plus relative in float32 (f32 sums in another order); 2e-2
+absolute plus relative in bfloat16, where the other order (the tensor
+cores' own in the "mma" kernel) can flip the bf16 rounding of an
+intermediate (one step is 2^-8 relative).
 """
 
 import os
@@ -59,11 +60,37 @@ def _case(name):
     elif name == "stops_at_zero":
         logits[:] = -np.inf
         logits[:, [5, 17, 40]] = [1.0, 2.0, 3.0]
+    elif name.startswith("tie_"):  # equal top scores at two candidate indices
+        logits = np.minimum(logits, 4.0)
+        logits[:, [int(v) for v in name.split("_")[1:]]] = 5.0
+    elif name == "winner_in_last_slot":
+        logits = np.minimum(logits, 4.0)
+        logits[:, K - 1] = 6.0
+    elif name == "k300_ties_in_last_group":
+        logits, boxes = np.minimum(logits[:, :300], 4.0), boxes[:, :300].copy()
+        logits[:, 288:] = 5.0
+    elif name == "all_equal":
+        logits[:] = 1.5
+    elif name == "iou_on_threshold":  # IoUs with the winner on and a few ulps around 0.5
+        logits = np.minimum(logits, 4.0)
+        logits[:, 0] = 6.0
+        boxes[:, 0] = [0.0, 0.0, 1.0, 1.0]
+        steps = (np.arange(K // 2 - 1) - K // 4).astype(np.float32) * np.float32(2.0 ** -24)
+        boxes[:, 1:K // 2, :2] = 0.0
+        boxes[:, 1:K // 2, 2] = np.float32(0.5) + steps
+        boxes[:, 1:K // 2, 3] = 1.0
+    elif name.startswith("iou_threshold_"):  # outside the range the comparison decides in
+        kw = {"iou_threshold": float(name.split("_")[-1])}
     return logits, boxes, kw
 
 
-@pytest.mark.parametrize("name", ["random", "ties", "all_suppressed", "threshold_above_all",
-                                  "k300_with_pads", "stops_at_zero"])
+NMS_CASES = ["random", "ties", "all_suppressed", "threshold_above_all", "k300_with_pads",
+             "stops_at_zero", "tie_37_38", "tie_37_53", "tie_37_69", "tie_255_256",
+             "winner_in_last_slot", "k300_ties_in_last_group", "all_equal", "iou_on_threshold",
+             "iou_threshold_0", "iou_threshold_1e-4"]
+
+
+@pytest.mark.parametrize("name", NMS_CASES)
 def test_nms_kernel_matches_plain(dev, name):
     from vbt_tpu_torch.ops.nms_cuda import nms
     from vbt_tpu_torch.ops.postprocess import nms_plain
@@ -107,9 +134,11 @@ def test_served_pipeline_launches_kernel(dev):
     assert valid[:, 0].all() and np.isfinite(rows).all()
 
 
-# (Cin, Cmid, Cout, H, W, k, stride): lite0's g1_b1 (stride 1, residual) and
-# g1_b0 (stride 2) at 320, as the turbo backbone runs them.
-K2_SHAPES = [(24, 144, 24, 80, 80, 3, 1), (16, 96, 24, 160, 160, 3, 2)]
+# (Cin, Cmid, Cout, H, W, k, stride): lite0's g1_b1 (stride 1, residual),
+# g1_b0 (stride 2) and g2_b1 (k5, stride 1) at 320, as the turbo backbone
+# runs them, and lite2's g2_b1 at 448 (Cin 48, the most the "mma" kernel takes).
+K2_SHAPES = [(24, 144, 24, 80, 80, 3, 1), (16, 96, 24, 160, 160, 3, 2),
+             (40, 240, 40, 40, 40, 5, 1), (48, 288, 48, 56, 56, 5, 1)]
 K2_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 
@@ -129,20 +158,66 @@ def _k2_case(dev, shape, dtype, b=4):
     return r(b, cin, h * w, dt=dtype), p
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def _assert_k2_close(got, want, dtype):
+    assert got.shape == want.shape and got.dtype == dtype
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= K2_TOL[dtype] * (1 + want.float().abs())).all()), diff.max().item()
+
+
+# float32 goes to the "fma" kernel and bfloat16 to "mma" by the launch plan's
+# rule; "fma" can be asked for in bfloat16.
+@pytest.mark.parametrize("dtype,variant,served", [
+    (torch.float32, None, "fma"), (torch.bfloat16, None, "mma"),
+    (torch.bfloat16, "mma", "mma"), (torch.bfloat16, "fma", "fma")],
+    ids=["f32", "bf16", "bf16-mma", "bf16-fma"])
 @pytest.mark.parametrize("shape", K2_SHAPES)
-def test_fused_mbconv_kernel_matches_plain(dev, shape, dtype):
+def test_fused_mbconv_kernel_matches_plain(dev, shape, dtype, variant, served):
     from vbt_tpu_torch.ops.fused_mbconv import fused_mbconv, fused_mbconv_plain
 
     x, p = _k2_case(dev, shape, dtype)
     before = fused_mbconv.launches
-    got = fused_mbconv(x, p)
+    by_variant = dict(fused_mbconv.launches_by_variant)
+    got = fused_mbconv(x, p, variant)
     torch.cuda.synchronize()
     assert fused_mbconv.launches == before + 1
-    want = fused_mbconv_plain(x, p)
-    assert got.shape == want.shape and got.dtype == dtype
-    diff = (got.float() - want.float()).abs()
-    assert bool((diff <= K2_TOL[dtype] * (1 + want.float().abs())).all()), diff.max().item()
+    assert fused_mbconv.launches_by_variant[served] == by_variant[served] + 1
+    _assert_k2_close(got, fused_mbconv_plain(x, p), dtype)
+
+
+@pytest.mark.parametrize("shape", K2_SHAPES)
+def test_fused_mbconv_mma_takes_channels_last(dev, shape):
+    """Channels-last input gives the contiguous input's values bit for bit,
+    in channels-last memory."""
+    from vbt_tpu_torch.ops.fused_mbconv import fused_mbconv
+
+    x, p = _k2_case(dev, shape, torch.bfloat16)
+    cin, _, cout, h, w, _, s = shape
+    x_cl = x.reshape(4, cin, h, w).contiguous(memory_format=torch.channels_last)
+    got, want = fused_mbconv(x_cl, p), fused_mbconv(x, p)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    ho, wo = -(-h // s), -(-w // s)
+    assert got.reshape(4, cout, ho, wo).is_contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError):  # the FMA kernel takes contiguous x only
+        fused_mbconv(x_cl, p, variant="fma")
+
+
+# Ragged channel counts, and Cin past the three k-steps the expand is built
+# for (48 is the most, as in lite2).
+@pytest.mark.parametrize("shape", [(5, 37, 7, 37, 23, 5, 2), (56, 96, 24, 17, 11, 3, 2),
+                                   (64, 96, 64, 17, 11, 3, 1)],
+                         ids=["ragged", "cin56", "cin64"])
+def test_fused_mbconv_mma_refuses_channels_it_is_not_built_for(dev, shape):
+    from vbt_tpu_torch.ops.fused_mbconv import fused_mbconv, fused_mbconv_plain
+
+    x, p = _k2_case(dev, shape, torch.bfloat16)
+    with pytest.raises(ValueError):
+        fused_mbconv(x, p, variant="mma")
+    before = fused_mbconv.launches_by_variant["fma"]
+    got = fused_mbconv(x, p)  # the rule sends it to "fma"
+    torch.cuda.synchronize()
+    assert fused_mbconv.launches_by_variant["fma"] == before + 1
+    _assert_k2_close(got, fused_mbconv_plain(x, p), torch.bfloat16)
 
 
 def test_fused_mbconv_kernel_rejects_what_it_cannot_take(dev):
@@ -165,7 +240,9 @@ def test_turbo_pipeline_launches_both_kernels(dev):
     pipe = DetectionPipeline.from_model_arg(CKPT, device=dev, backbone="turbo")
     assert pipe.dtype == torch.bfloat16 and len(pipe.turbo.fused_names) == 5
     k2, k1 = fused_mbconv.launches, nms.launches
+    mma = fused_mbconv.launches_by_variant["mma"]
     det = pipe.detect_batch(plate_frames(8, 240, 320, seed=3))
     rows, valid = pipe.detections_to_tracker_inputs(det, 0.5)
     assert fused_mbconv.launches == k2 + 5 and nms.launches == k1 + 1
+    assert fused_mbconv.launches_by_variant["mma"] == mma + 5  # the served bf16 lane
     assert valid[:, 0].all() and np.isfinite(rows).all()

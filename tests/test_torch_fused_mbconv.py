@@ -15,6 +15,12 @@
   by O(1).
 - the wrapper on CPU tensors takes the plain version and launches nothing,
   and refuses what the CUDA kernel does not take.
+- ``launch_plan`` over every block the turbo backbone fuses for lite0 at
+  320, lite1 at 384 and lite2 at 448 (walked from ``scaled_blocks`` with the
+  backbone's fuse rule) and over the odd blocks the card script holds, in
+  bfloat16 and float32: the variant is the documented one, the shared memory
+  fits a block, the chunk covers Cmid, Cout is within the accumulators, and
+  the tiles cover the output exactly once.
 
 Every input and weight is made with numpy from a seed.
 """
@@ -33,12 +39,20 @@ from vbt_tpu.models.efficientnet_lite import MBConvArgs as JaxArgs  # noqa: E402
 from vbt_tpu.models.efficientnet_lite import MBConvBlock as JaxBlock  # noqa: E402
 from vbt_tpu.models.turbo import fold_block_params as jax_fold  # noqa: E402
 from vbt_tpu.ops.fused_mbconv import fused_mbconv as jax_fused_mbconv  # noqa: E402
-from vbt_tpu_torch.models.efficientnet_lite import MBConvArgs, MBConvBlock  # noqa: E402
-from vbt_tpu_torch.models.turbo import fold_block_params  # noqa: E402
+from vbt_tpu_torch.models.efficientnet_lite import (  # noqa: E402
+    STEM_CHANNELS,
+    MBConvArgs,
+    MBConvBlock,
+    scaled_blocks,
+)
+from vbt_tpu_torch.models.turbo import FUSE_MIN_SPATIAL, fold_block_params  # noqa: E402
 from vbt_tpu_torch.ops.fused_mbconv import (  # noqa: E402
+    MAX_SMEM,
     FusedBlockParams,
     fused_mbconv,
     fused_mbconv_plain,
+    launch_plan,
+    mma_takes,
 )
 from vbt_tpu_torch.runtime.checkpoint import convert_flax_variables, load_into  # noqa: E402
 
@@ -182,3 +196,113 @@ def test_wrapper_refuses_mixed_dtypes():
     x, p = _cpu_case(torch.float32)
     with pytest.raises(TypeError):
         fused_mbconv(x.to(torch.bfloat16), p)
+
+
+def _fused_shapes(variant: str, size: int):
+    """(name, cin, cmid, cout, h, w, kernel, stride, has_expand) of the blocks
+    the turbo backbone fuses at a ``size`` x ``size`` input: an expand conv
+    and an input of at least ``FUSE_MIN_SPATIAL`` positions."""
+    h = -(-size // 2)  # after the stride-2 stem
+    cin = STEM_CHANNELS
+    out = []
+    for gi, args in enumerate(scaled_blocks(variant)):
+        for bi in range(args.repeats):
+            stride = args.stride if bi == 0 else 1
+            if h * h >= FUSE_MIN_SPATIAL and args.expand != 1:
+                out.append((f"{variant}_g{gi}_b{bi}", cin, cin * args.expand, args.out_ch, h, h,
+                            args.kernel, stride, True))
+            cin = args.out_ch
+            if stride == 2:
+                h = -(-h // 2)
+    return out
+
+
+# The odd blocks the card script holds: ragged channels, non-square odd sizes,
+# no expand, and more input channels than the "mma" kernel's three k-steps.
+ODD_SHAPES = [
+    ("odd_s2_k5", 5, 37, 7, 37, 23, 5, 2, True),
+    ("odd_s1_k3_residual", 24, 144, 24, 19, 45, 3, 1, True),
+    ("odd_no_expand", 16, 16, 16, 21, 13, 3, 1, False),
+    ("odd_cin56", 56, 96, 24, 17, 11, 3, 2, True),
+    ("odd_cin64_residual", 64, 96, 64, 17, 11, 3, 1, True),
+]
+PLAN_SHAPES = (_fused_shapes("lite0", 320) + _fused_shapes("lite1", 384)
+               + _fused_shapes("lite2", 448) + ODD_SHAPES)
+
+
+def test_fused_shapes_are_the_backbones():
+    """The walk above names the blocks ``TurboBackbone`` fuses: 5 for lite0, 7 for lite2."""
+    assert [s[0] for s in _fused_shapes("lite0", 320)] == [
+        "lite0_g1_b0", "lite0_g1_b1", "lite0_g2_b0", "lite0_g2_b1", "lite0_g3_b0"]
+    assert _fused_shapes("lite0", 320)[0][1:] == (16, 96, 24, 160, 160, 3, 2, True)
+    assert _fused_shapes("lite0", 320)[4][1:] == (40, 240, 80, 40, 40, 3, 2, True)
+    assert len(_fused_shapes("lite2", 448)) == 7
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=[s[0] for s in PLAN_SHAPES])
+def test_launch_plan(shape, dtype):
+    name, cin, cmid, cout, h, w, kernel, stride, has_expand = shape
+    plan = launch_plan(dtype, cin, cmid, cout, h, w, kernel, stride, has_expand)
+    # The documented rule: bfloat16 blocks with an expand conv, Cin (at most
+    # 48) and Cout multiples of 8 and Cmid a multiple of 48 go to "mma", all
+    # else to "fma".
+    regular = (has_expand and cin % 8 == 0 and cin <= 48 and cout % 8 == 0
+               and cmid % 48 == 0)
+    want = "mma" if dtype == torch.bfloat16 and regular else "fma"
+    assert plan.variant == want
+    assert mma_takes(dtype, cin, cmid, cout, has_expand) == (want == "mma")
+    if not name.startswith("odd"):
+        assert regular  # every fused block of lite0, lite1 and lite2 is served by "mma" in bf16
+    assert 0 < plan.smem_bytes <= MAX_SMEM == 232448
+    assert plan.threads % 32 == 0 and 0 < plan.threads <= 1024
+    assert plan.chunk * -(-cmid // plan.chunk) >= cmid
+    if plan.variant == "mma":
+        assert cmid % plan.chunk == 0  # the tensor-core kernel has no ragged chunk
+        assert plan.tile_h * plan.tile_w % 16 == 0  # whole m-tiles of the projection
+    assert cout <= plan.max_cout
+    # The tiles cover every output position exactly once.
+    ho, wo = -(-h // stride), -(-w // stride)
+    covered = np.zeros((ho, wo), np.int32)
+    for y, x in plan.tile_origins(ho, wo):
+        covered[y:y + plan.tile_h, x:x + plan.tile_w] += 1
+    assert (covered == 1).all()
+    # A named variant is taken as asked where the block allows it.
+    assert launch_plan(dtype, cin, cmid, cout, h, w, kernel, stride, has_expand,
+                       variant="fma").variant == "fma"
+    if want == "mma":
+        assert launch_plan(dtype, cin, cmid, cout, h, w, kernel, stride, has_expand,
+                           variant="mma") == plan
+    else:
+        with pytest.raises(ValueError):
+            launch_plan(dtype, cin, cmid, cout, h, w, kernel, stride, has_expand, variant="mma")
+
+
+def test_launch_plan_refuses_what_no_kernel_takes():
+    with pytest.raises(ValueError):
+        launch_plan(torch.bfloat16, 24, 144, 24, 80, 80, 3, 1, variant="wgmma")
+    with pytest.raises(ValueError):  # more output channels than either kernel accumulates
+        launch_plan(torch.float32, 24, 144, 136, 80, 80, 3, 1)
+    with pytest.raises(ValueError):  # f32 tiles of 512 input channels do not fit a block
+        launch_plan(torch.float32, 512, 3072, 64, 80, 80, 5, 2)
+
+
+@pytest.mark.parametrize("variant", ["mma", "fma"])
+def test_wrapper_variant_on_cpu(variant):
+    """On the CPU a named variant runs the plain version, but the launch
+    plan's rule still decides whether the block may have it."""
+    x, p = _cpu_case(torch.bfloat16)  # 6 -> 36 -> 10 channels: ragged, so "fma" only
+    if variant == "mma":
+        with pytest.raises(ValueError):
+            fused_mbconv(x, p, variant=variant)
+    else:
+        assert torch.equal(fused_mbconv(x, p, variant=variant), fused_mbconv_plain(x, p))
+    with pytest.raises(ValueError):
+        fused_mbconv(x, p, variant="cudnn")
+
+
+def test_wrapper_on_cpu_takes_channels_last_input():
+    """A channels-last NCHW tensor holds the same values: the plain version gives the same."""
+    x, p = _cpu_case(torch.bfloat16)
+    got = fused_mbconv(x.contiguous(memory_format=torch.channels_last), p)
+    assert torch.equal(got, fused_mbconv_plain(x, p))

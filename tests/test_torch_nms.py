@@ -117,6 +117,64 @@ def test_kernel_lane_stops_at_zero_score():
     assert got.count.tolist() == [3]
 
 
+def _ranked_case(n, tied, far, top=6.0):
+    """Candidates laid out in rank order (descending logits by index, so the
+    stable top-K keeps them in place): candidate 0 wins round 1 and suppresses
+    every candidate that shares its box; the candidates in ``far`` have boxes
+    of their own; the candidates in ``tied`` share one logit. What is left
+    after round 1 is exactly ``far``, so equal scores meet at whatever
+    candidate indices ``tied`` names."""
+    logits = np.linspace(top - 0.1, -4.0, n).astype(np.float32)  # strictly descending
+    logits[0] = top
+    lo, hi = min(tied), max(tied)
+    logits[lo:hi + 1] = logits[lo]  # a sorted input's ties are one run
+    anchors = np.tile(np.array([[160.0, 160.0, 64.0, 64.0]], np.float32), (n, 1))
+    for slot, idx in enumerate(far):  # 8-pixel boxes on a 23 x 23 grid, none overlapping
+        anchors[idx] = [8.0 + 13.0 * (slot // 23), 8.0 + 13.0 * (slot % 23), 8.0, 8.0]
+    return (np.zeros((1, n, 4), np.float32), logits.reshape(1, n, 1), anchors)
+
+
+@pytest.mark.parametrize("i,j", [(3, 4), (3, 19), (3, 35), (255, 256)],
+                         ids=["i_i+1", "i_i+16", "i_i+32", "255_256"])
+def test_kernel_lane_tie_between_two_live_candidates(i, j):
+    # After round 1 only i and j (equal scores) and the tail stay live: the
+    # lower index goes first, whichever lanes or warps hold the two.
+    deltas, logits, anchors = _ranked_case(512, tied=(i, j), far=[i, j, 500, 501])
+    got, want = _kernel_lane(deltas, logits, anchors=anchors)
+    _assert_same(got, want)
+    assert got.count.tolist() == [5]
+    np.testing.assert_array_equal(got.scores[0, 1].numpy(), got.scores[0, 2].numpy())
+    assert got.boxes[0, 1, 1] < got.boxes[0, 2, 1]  # i's box (grid slot 0) before j's (slot 1)
+
+
+def test_kernel_lane_winner_in_last_slot():
+    deltas, logits, anchors = _ranked_case(512, tied=(5, 5), far=[511])
+    got, want = _kernel_lane(deltas, logits, anchors=anchors)
+    _assert_same(got, want)
+    assert got.count.tolist() == [2]
+    assert got.scores[0, 1].item() == pytest.approx(1 / (1 + np.exp(4.0)), abs=1e-6)
+
+
+def test_kernel_lane_k300_ties_in_last_group():
+    # K = 300: the last lanes hold a partly filled group of candidates; its
+    # ten equal scores come out in index order.
+    far = list(range(290, 300))
+    deltas, logits, anchors = _ranked_case(300, tied=(290, 299), far=far)
+    got, want = _kernel_lane(deltas, logits, anchors=anchors)
+    _assert_same(got, want)
+    assert got.count.tolist() == [11]
+    xs = got.boxes[0, 1:11, 1].numpy()
+    assert (np.diff(xs) > 0).all()  # grid slots 0..9 in order
+
+
+def test_kernel_lane_all_512_equal():
+    deltas, logits, anchors = _ranked_case(512, tied=(0, 511), far=list(range(512)), top=1.5)
+    got, want = _kernel_lane(deltas, logits, anchors=anchors)
+    _assert_same(got, want)
+    assert got.count.tolist() == [25]
+    assert (np.diff(got.boxes[0, :23, 1].numpy()) > 0).all()  # candidates 0..22 in order
+
+
 def test_nms_wrapper_checks_inputs():
     logits = torch.zeros(2, 8)
     boxes = torch.zeros(2, 8, 4)

@@ -1,5 +1,10 @@
 // One whole inference MBConv block (1x1 expand + ReLU6, k x k depthwise +
-// ReLU6, 1x1 project, optional residual), BatchNorms folded into the weights.
+// ReLU6, 1x1 project, optional residual), BatchNorms folded into the weights:
+// the form with the 1x1 products as f32 FMA loops. It serves float32, where
+// it agrees with the plain version to the order of an f32 sum (tensor cores
+// would mean TF32, three digits), and the bfloat16 blocks that
+// csrc/fused_mbconv_mma.cu does not take (ragged channel counts, no expand
+// conv); vbt_tpu_torch/ops/fused_mbconv.py:launch_plan decides.
 //
 // Replaces the TPU kernel vbt_tpu/ops/fused_mbconv.py:_mbconv_kernel (driven
 // by fused_mbconv there). Same arithmetic as the plain torch version
@@ -8,17 +13,20 @@
 // compute type T (float or bf16) and back; every sum is f32; the output is
 // rounded to T once, after bias and residual.
 //
-// What bounds it on an H100. Unfused, the 6x-expanded intermediate crosses
-// device memory several times per block; fused, only x and the output do
-// (39 MB in and out for lite0's g1_b1 at B = 64 in bf16, 12 us at
-// 3.35 TB/s). With the 1x1 products at the tensor-core rate and the
-// depthwise taps at the f32 rate, the least time is set by those bytes for
-// lite0's first fused block and by the operations, mostly the depthwise's,
-// for the other four (chip_smoke.py computes both per shape). This first
-// version does its 1x1 products with FMA loops on the f32 pipes, about 15x
-// slower than the tensor cores, so it is bound by those instructions, not by
-// memory: tens of times its bound (PERF.md). mma/wgmma for the products is
-// later work.
+// What bounds it on an H100. Fused, only x and the output cross device
+// memory (39 MB for EfficientDet-Lite0's g1_b1 at 64 images in bf16, 12 us
+// at 3.35 TB/s), and its FMAs would take 0.1-0.2 ms a block on the f32
+// pipes. It takes 0.83-0.93 ms on every Lite0 block (NVIDIA H100 80GB
+// HBM3 at 700 W, python3 chip_smoke.py), flat across shapes whose FMA
+// counts differ 1.7x, so neither is the limit: the instructions around the
+// FMAs are. The projection makes one shared-memory load for
+// every FMA and runs all its accumulators under a predicate, the expand one
+// scalar and one 16-byte load per four FMAs plus a division per item, and
+// f32 tiles of 37-108 KB leave 2-3 CTAs of 8 warps an SM with four barriers
+// per 32-channel chunk. With the products on the tensor cores and bf16
+// tiles the same blocks take 0.07-0.22 ms on the same card in the same run
+// (csrc/fused_mbconv_mma.cu; PERF.md names the runs). This form is kept
+// simple: it is the exact one.
 //
 // Design. The TPU kept one image's whole expanded tensor in VMEM; lite0's
 // first fused block expands to 96 x 160 x 160 bf16 = 4.9 MB, far more than

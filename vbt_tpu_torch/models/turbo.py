@@ -13,11 +13,13 @@ under ``jit`` on every call, with the same f32 arithmetic. The stem and the
 unfused blocks mirror the JAX ``_xla_block``: weights and BN factors cast
 to the working dtype, then ``x * f + s``; they do not call
 ``MBConvBlock.forward`` (``F.batch_norm``), which rounds differently in
-bf16. The fused kernel takes and gives contiguous NCHW, its (B, C, H*W)
-layout; the unfused blocks and the taps are made channels-last, the layout
-cuDNN gives the module's own forward (an NCHW depthwise conv runs a much
-slower kernel on the card). That copy is the counterpart of the JAX
-conversions at the fused/unfused boundary.
+bf16. The unfused blocks and the taps are channels-last, the layout cuDNN
+gives the module's own forward (an NCHW depthwise conv runs a much slower
+kernel on the card). The tensor-core fused kernel takes and gives
+channels-last memory too, so on the card a bf16 forward changes layout once,
+after the stem; the FMA kernel (float32) and the plain version take
+contiguous NCHW, their (B, C, H*W) layout, and that copy is the counterpart
+of the JAX conversions at the fused/unfused boundary.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from torch import nn
 
 from vbt_tpu_torch.models.conv import BatchNorm, conv2d_same
 from vbt_tpu_torch.models.efficientnet_lite import TAPS, EfficientNetLite, MBConvBlock
-from vbt_tpu_torch.ops.fused_mbconv import FusedBlockParams, fold_bn, fused_mbconv
+from vbt_tpu_torch.ops.fused_mbconv import FusedBlockParams, fold_bn, fused_mbconv, mma_takes
 from vbt_tpu_torch.utils.device import resolve_device
 
 BN_EPS = 1e-3
@@ -143,6 +145,7 @@ class TurboBackbone(nn.Module):
         device = resolve_device(device)
         self.image_hw = tuple(int(s) for s in image_hw)
         self.dtype = dtype
+        self.on_card = device.type == "cuda"
         self.stem = ConvBN.fold(backbone.stem, backbone.stem_bn.bn, dtype, device, stride=2)
         h, w = (-(-s // 2) for s in self.image_hw)
         self.steps: list[tuple[int, str, FusedBlockParams | PlainBlock]] = []
@@ -170,7 +173,13 @@ class TurboBackbone(nn.Module):
         for i, (gi, _, step) in enumerate(self.steps):
             if isinstance(step, FusedBlockParams):
                 ho, wo = step.out_hw
-                x = fused_mbconv(x.contiguous(), step).reshape(x.shape[0], -1, ho, wo)
+                cmid, cin = step.we.shape
+                # The tensor-core kernel reads and writes channels-last memory.
+                channels_last = self.on_card and mma_takes(x.dtype, cin, cmid, step.wp.shape[0],
+                                                           True)
+                x = x.contiguous(memory_format=torch.channels_last if channels_last
+                                 else torch.contiguous_format)
+                x = fused_mbconv(x, step).reshape(x.shape[0], -1, ho, wo)
             else:
                 x = step(x.contiguous(memory_format=torch.channels_last))
             last_of_group = i + 1 == len(self.steps) or self.steps[i + 1][0] != gi

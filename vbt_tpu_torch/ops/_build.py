@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface, loaded with ``ctypes``. Nothing includes
 PyTorch's headers, so a build takes seconds. Libraries go to
 ``build/vbt_tpu_torch/`` beside the package (``.gitignore`` lists
-``build/``) and are rebuilt when their source is newer. :func:`build_all`
-starts one ``nvcc`` per source at once.
+``build/``) and are rebuilt when their ``.cu`` file or any ``.cuh`` header
+under ``csrc/`` is newer. :func:`build_all` starts one ``nvcc`` per source at
+once and keeps each compiler's output in :data:`build_log`.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
@@ -25,7 +26,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vbt_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("nms", "fused_mbconv")  # csrc/<name>.cu -> build/vbt_tpu_torch/lib<name>.so
+# csrc/<name>.cu -> build/vbt_tpu_torch/lib<name>.so
+SOURCES = ("nms", "fused_mbconv", "fused_mbconv_mma")
+PTXAS_VERBOSE = ["-Xptxas", "-v"]  # registers, spills and shared memory of every kernel
+
+build_log: dict[str, str] = {}  # nvcc's output of the last build of each source
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -48,16 +53,22 @@ def _paths(name: str) -> tuple[Path, Path]:
 
 
 def _stale(name: str) -> bool:
+    """Whether ``lib<name>.so`` is missing or older than a file it is built
+    from: its ``.cu`` source or any ``.cuh`` header of ``csrc/`` (a source
+    may include any of them)."""
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    return any(built < dep.stat().st_mtime for dep in (src, *CSRC.glob("*.cuh")))
 
 
-def _start(name: str) -> tuple[subprocess.Popen, Path, Path]:
+def _start(name: str, extra_flags: tuple[str, ...]) -> tuple[subprocess.Popen, Path, Path]:
     src, lib = _paths(name)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, Path(tmp), lib
 
@@ -67,14 +78,16 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, lib: Path) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu (rc {proc.returncode}):\n{out}")
+    build_log[name] = out
     os.replace(tmp, lib)  # atomic: concurrent builders never see half a library
 
 
-def build_all() -> list[str]:
-    """Compile every stale kernel source, all ``nvcc`` runs in parallel.
+def build_all(extra_flags: tuple[str, ...] | list[str] = ()) -> list[str]:
+    """Compile every stale kernel source, all ``nvcc`` runs in parallel, with
+    ``extra_flags`` (such as :data:`PTXAS_VERBOSE`) after the standard ones.
     Returns the names that were (re)built."""
     with _lock:
-        started = [(n, *_start(n)) for n in SOURCES if _stale(n)]
+        started = [(n, *_start(n, tuple(extra_flags))) for n in SOURCES if _stale(n)]
         try:
             for name, proc, tmp, lib in started:
                 _finish(name, proc, tmp, lib)

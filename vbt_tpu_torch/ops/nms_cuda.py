@@ -28,14 +28,15 @@ from vbt_tpu_torch.ops.postprocess import (
     top_k_candidates,
 )
 
-MAX_CANDIDATES = 512  # one CTA thread per candidate (csrc/nms.cu kMaxCandidates)
+MAX_CANDIDATES = 512  # candidates an image's warps hold in registers (csrc/nms.cu kMaxCandidates)
 
 
 @functools.cache
 def _launcher():
     """``vbt_nms_launch`` of the built library, its C signature declared."""
     fn = _build.load("nms").vbt_nms_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
