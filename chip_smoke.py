@@ -11,25 +11,34 @@ Phases, each of which raises on failure:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel of the path from ``vbt_tpu_torch/csrc`` (one ``nvcc``
    per source, all at once);
-3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes. NMS (B = 64 images, K = 512 candidates, float32) on random
-   and adversarial inputs: counts exact, scores within 1e-6, boxes within
-   1e-5. Fused MBConv on the five blocks
-   the turbo backbone fuses in EfficientDet-Lite0 at 320 (B = 64) and the
-   seven of Lite2 at 448 (B = 8), with the shipped folded weights, and on
-   odd non-square blocks (ragged channels, no expand conv, more input
-   channels than the ``"mma"`` kernel takes): the FMA kernel in float32
-   within 2e-4, and in
-   bfloat16 the kernel the launch plan names (the tensor-core ``"mma"``
-   kernel on every Lite0 and Lite2 block) within 2e-2, absolute plus
-   relative (``K2_TOL``);
+3. each kernel against its plain PyTorch version at the main path's shapes.
+   NMS (B = 64 images, K = 512 candidates, float32) on random and
+   adversarial inputs: counts exact, scores within 1e-6, boxes within 1e-5.
+   Fused MBConv on the five blocks the turbo backbone fuses in
+   EfficientDet-Lite0 at 320 (B = 64) and the seven of Lite2 at 448 (B = 8),
+   with the shipped folded weights, and on odd non-square blocks (ragged
+   channels, no expand conv, more input channels than the ``"mma"`` kernel
+   takes): the FMA kernel in float32 within 2e-4, and in bfloat16 the kernel
+   the launch plan names (the tensor-core ``"mma"`` kernel on every Lite0
+   and Lite2 block) within 2e-2, absolute plus relative (``K2_TOL``). The
+   scan tracker K3 (float32) against its plain version on CPU copies of the
+   same inputs, on the tracker's test scenes, four ragged clips in one
+   launch (and each alone, bit for bit) and, after phase 4, the main path's
+   real detections: report, ids and conf exact, boxes within 1e-6, dxdy
+   within ``K3_DXDY_ATOL``;
 4. the main path, both backbones: the shipped EfficientDet-Lite0 weights
    served in bf16 on the card, 4 batches of 64 synthetic 720x1280 frames of
-   a moving plate, ``detect_batch`` -> ``detections_to_tracker_inputs`` ->
-   host OC-SORT -> ``tracks_to_data``, with every kernel's launch count set
-   to 0 before and read after each lane: the XLA lane launches NMS 4 times,
-   the turbo lane NMS 4 times and fused MBConv 20 times, all 20 through
-   the ``"mma"`` kernel;
+   a moving plate (8 periods of 32 frames), ``detect_batch`` (through the
+   pinned staging ring) -> ``detections_to_tracker_inputs`` -> the scan
+   tracker on the card (K3) and the host OC-SORT, whose dataframes must
+   agree (same ids and rows, positions and plate sizes within 1e-6, dx/dy
+   within ``HOST_DXDY_ATOL``) -> the plot CLI's smoothing and phase
+   segmentation on the host (numpy float64) and with torch on the card,
+   which must give the same phases, at least 4 of them concentric; each
+   rep's ROM and ACV are printed beside the scene's analytic values. Every
+   kernel's launch count is set to 0 before and read after each lane: the
+   XLA lane launches NMS 4 times and K3 once, the turbo lane NMS 4 times,
+   K3 once and fused MBConv 20 times, all 20 through the ``"mma"`` kernel;
 5. the bf16 pipeline against an f32 one on the same card, the f32 card
    pipeline against the f32 CPU pipeline (plain versions) on two frames, and
    the f32 turbo pipeline against the f32 XLA pipeline on the card;
@@ -40,11 +49,16 @@ Phases, each of which raises on failure:
    kernel on the channels-last memory the turbo backbone gives it (``ms``)
    and on contiguous NCHW (``nchw_ms``), the FMA kernel on the same bf16
    inputs (``fma_ms``) and the port's unfused block (cuDNN convs,
-   ``unfused_ms``);
+   ``unfused_ms``); K3 by CUDA events on the main path's detections (C = 1,
+   T = 256) and on synthetic 60 s clips (C = 1 and C = 16, T = 1800),
+   beside the host OC-SORT on the same detections and the plain version on
+   the card over 16 frames;
 7. where one batch's time goes, for each backbone: the forward's device
    time (CUDA events over 10 calls on one preprocessed batch), stage spans
-   on the device stream, and the device's busy share and time by kernel
-   from ``torch.profiler``.
+   through the pinned ring (the host's fill of the staging buffer, the copy
+   on the copy stream, then the compute stream), a pageable ``.to()`` of the
+   same batch for comparison, and the device's busy share and time by
+   kernel from ``torch.profiler``.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -60,10 +74,13 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(REPO, "models", "efficientdet_lite0_whole.msgpack")
 LITE2_CKPT = os.path.join(REPO, "models", "efficientdet_lite2_whole.msgpack")
 BATCH, BATCHES, HEIGHT, WIDTH = 64, 4, 720, 1280
+PERIOD = 32  # frames per rep of the synthetic plate
 LITE2_BATCH = 8
 K, D = 512, 25
 SCORE_ATOL, BOX_ATOL = 1e-6, 1e-5
@@ -73,6 +90,21 @@ SCORE_ATOL, BOX_ATOL = 1e-6, 1e-5
 # the bf16 rounding of one expanded or depthwise value (one step is 2^-8
 # relative), which the later sums carry.
 K2_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# The scan tracker K3 against its plain version, both float32: the kernel's
+# 4x4 inverse and 7x7 products round in their own order, which the 1e4
+# initial velocity covariance amplifies early in a track; ids, report and
+# conf are exact, reported observations are copies.
+K3_BOX_ATOL, K3_DXDY_ATOL = 1e-6, 1e-4
+# K3 (float32) against the host OC-SORT (numpy float64) on the main path:
+# positions and plate sizes are float32 copies of the detections; dx/dy
+# carry the float32 Kalman transient the JAX CLI documents as ~1e-2
+# (vbt_tpu/cli/track.py:19-26).
+ROW_ATOL, HOST_DXDY_ATOL = 1e-6, 1e-2
+FPS, PLATE_DIAMETER = 30.0, 0.45
+# Phases of the two analysis lanes: type and times exact, positions and ROM
+# within 1e-9 relative (the same bound the JAX package holds its device lane
+# to against the host lane, tests/test_velocity_jax.py).
+PHASE_RTOL = 1e-9
 TIE_PAIRS = ((37, 38), (37, 53), (37, 69), (255, 256))  # i+1, i+16, i+32, across 255/256
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -330,12 +362,176 @@ def _candidates(pipe, frames):
     return top_logits.contiguous(), boxes.contiguous()
 
 
-def _main_path(lane, pipe, frames, kernels, want_launches) -> tuple[float, dict]:
-    """Drive one backbone's main path with every count at 0; check the
-    launches and the tracks. Returns (detect frames/s, launches by kernel)."""
-    import numpy as np
+def _k3_cfg(kind="ocsort", **kw):
+    from vbt_tpu_torch.tracking.scan import ScanTrackerConfig
+
+    return getattr(ScanTrackerConfig, kind)(**kw)
+
+
+def _hold_k3(label, cfg, dets, det_valid, frame_valid, skip=True) -> float:
+    """K3 on the card against its plain version on CPU copies of the same
+    float32 inputs ((C, T, D, 6) numpy). Returns the max abs difference of
+    boxes and dxdy on reported rows."""
     import torch
-    from vbt_tpu_torch.cli.track import run_host_tracker, tracks_to_data
+    from vbt_tpu_torch.runtime.batch_runner import track_clips
+
+    arrays = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+              (dets.astype(np.float32), det_valid, frame_valid)]
+    got = track_clips(cfg, *(a.cuda() for a in arrays), skip_empty_frames=skip)
+    torch.cuda.synchronize()
+    want = track_clips(cfg, *arrays, skip_empty_frames=skip)
+    rep = want.report
+    if not torch.equal(got.report.cpu(), rep):
+        raise AssertionError(f"track_scan {label}: report differs in "
+                             f"{int((got.report.cpu() != rep).sum())} slots")
+    for field in ("track_id", "conf"):
+        if not torch.equal(getattr(got, field).cpu()[rep], getattr(want, field)[rep]):
+            raise AssertionError(f"track_scan {label}: {field} differs")
+    db = (got.box.cpu()[rep] - want.box[rep]).abs().max().item() if rep.any() else 0.0
+    dd = (got.dxdy.cpu()[rep] - want.dxdy[rep]).abs().max().item() if rep.any() else 0.0
+    if not (db <= K3_BOX_ATOL and dd <= K3_DXDY_ATOL):
+        raise AssertionError(f"track_scan {label}: boxes differ by {db}, dxdy by {dd}")
+    print(f"track_scan vs plain [{label}]: C={dets.shape[0]} T={dets.shape[1]} "
+          f"D={dets.shape[2]} S={cfg.max_tracks}, {int(rep.sum())} reported rows, ids equal "
+          f"({sorted(set(got.track_id.cpu()[rep].tolist()))[:12]}), "
+          f"max |d box| {db:.3g}, max |d dxdy| {dd:.3g}")
+    return max(db, dd)
+
+
+def _hold_k3_scenes() -> float:
+    """Phase 3, K3: every test scene, then four ragged clips in one launch
+    against the plain version and against one launch per clip, bit for bit."""
+    import torch
+    from vbt_tpu_torch.io.synthetic import ragged_clips, tracker_cases
+    from vbt_tpu_torch.runtime.batch_runner import pad_clips, track_clips
+    from vbt_tpu_torch.tracking.scan import track_video
+
+    err = 0.0
+    for name, (kind, kw, (dets, valid), skip) in tracker_cases().items():
+        err = max(err, _hold_k3(name, _k3_cfg(kind, **kw), dets[None], valid[None],
+                                np.ones((1, dets.shape[0]), bool), skip))
+    cfg = _k3_cfg(max_age=10, asso="diou", iou_threshold=0.1, max_tracks=8)
+    clips = ragged_clips()
+    arrays = pad_clips([d.astype(np.float32) for d, _ in clips], [v for _, v in clips])
+    err = max(err, _hold_k3("4 ragged clips", cfg, *arrays))
+    batched = track_clips(cfg, *(torch.from_numpy(a).cuda() for a in arrays))
+    for i, (d, v) in enumerate(clips):
+        single = track_video(cfg, torch.from_numpy(d.astype(np.float32)).cuda(),
+                             torch.from_numpy(v).cuda())
+        t = d.shape[0]
+        if not all(torch.equal(b[i, :t], o) for b, o in zip(batched, single)):
+            raise AssertionError(f"track_scan: clip {i} of 4 differs from its own launch")
+        if batched.report[i, t:].any():
+            raise AssertionError(f"track_scan: padding frames of clip {i} report")
+    print("track_scan: 4 ragged clips in one launch equal 4 single-clip launches bit for bit")
+    return err
+
+
+def _compare_track_data(lane, scan, host) -> float:
+    """The scan tracker's and the host OC-SORT's columnar capture dicts: the
+    same ids, times and row order; positions and plate sizes within
+    ROW_ATOL, dx/dy within HOST_DXDY_ATOL. Returns the max |d dx/dy|."""
+    if scan["id"] != host["id"] or scan["time"] != host["time"]:
+        raise AssertionError(f"{lane}: scan and host trackers give other rows or ids "
+                             f"({len(scan['id'])} vs {len(host['id'])} rows)")
+    err = {c: float(np.abs(np.subtract(scan[c], host[c])).max()) if scan[c] else 0.0
+           for c in ("x", "y", "norm_plate_height", "norm_plate_width", "dx", "dy")}
+    row_err, dxdy_err = max(err[c] for c in list(err)[:4]), max(err["dx"], err["dy"])
+    print(f"main path [{lane}]: scan (K3, float32) vs host OC-SORT (float64): "
+          f"{len(scan['id'])} rows, ids equal, max |d| x/y/plate {row_err:.3g}, "
+          f"dx/dy {dxdy_err:.3g}")
+    if row_err > ROW_ATOL or dxdy_err > HOST_DXDY_ATOL:
+        raise AssertionError(f"{lane}: scan and host dataframes differ: {err}")
+    return dxdy_err
+
+
+def _track_series(data) -> list[np.ndarray]:
+    """The plotted track's raw series (the id with the most rows)."""
+    ids = np.asarray(data["id"])
+    tid = max(set(data["id"]), key=data["id"].count)
+    cols = ("time", "x", "y", "dx", "dy", "norm_plate_height", "norm_plate_width")
+    return [np.asarray(data[c], np.float64)[ids == tid] for c in cols]
+
+
+def _analyse(lane, data):
+    """The plot CLI's analysis of the scan dataframe in both engines: host
+    (numpy float64 smoothing and the VelocityTracker) and torch on the card
+    (presmoothing included). Returns (phases, host s, torch s)."""
+    import torch
+    from vbt_tpu_torch.analysis.phase import CONCENTRIC
+    from vbt_tpu_torch.analysis.smoothing import expanding_mean_np, rolling_mean_np
+    from vbt_tpu_torch.analysis.velocity import VelocityTracker
+    from vbt_tpu_torch.analysis.velocity_torch import analyze_series, to_phase_list
+    from vbt_tpu_torch.io.synthetic import PLATE_AMPLITUDE, PLATE_RADIUS
+
+    series = _track_series(data)
+    t0 = time.perf_counter()
+    t, x, y, dx, dy, h, w = series
+    smoothed = [t, *(rolling_mean_np(a, 5) for a in (x, y, dx, dy)),
+                expanding_mean_np(h), expanding_mean_np(w)]
+    vt = VelocityTracker(PLATE_DIAMETER)
+    for row in zip(*smoothed):
+        vt.process_measurements(*row)
+    vt.end_processing()
+    host = vt.phases
+    t1 = time.perf_counter()
+    on_card = to_phase_list(analyze_series(*series, plate_diameter=PLATE_DIAMETER,
+                                           device="cuda"))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    same = len(host) == len(on_card) and all(
+        (a.type, a.time_start, a.time_end) == (b.type, b.time_start, b.time_end)
+        and all(abs(getattr(a, f) - getattr(b, f)) <= PHASE_RTOL * abs(getattr(b, f))
+                for f in ("y_start", "y_end", "rom"))
+        for a, b in zip(on_card, host))
+    if not same:
+        raise AssertionError(f"{lane}: the analysis engines disagree: host {host}, "
+                             f"torch {on_card}")
+    reps = [p for p in host if p.type == CONCENTRIC]
+    # The disc's center travels 2 * amplitude of the frame height in half a
+    # period; the plate's box is 2 * radius high, which the analysis scales
+    # to the plate diameter.
+    rom = 2 * PLATE_AMPLITUDE / (2 * PLATE_RADIUS) * PLATE_DIAMETER
+    acv = rom / (PERIOD / 2 / FPS)
+    print(f"main path [{lane}]: analysis host {t1 - t0:.3f} s, torch on the card "
+          f"{t2 - t1:.3f} s: {len(host)} phases, the same in both engines, "
+          f"{len(reps)} concentric; analytic ROM {rom:.4f} m, ACV {acv:.4f} m/s (disc "
+          f"{2 * PLATE_RADIUS:.2f} of the frame high; the boxes' mean height "
+          f"{h.mean():.4f}); per rep "
+          + ", ".join(f"ROM {p.rom:.4f} ACV {p.rom / p.duration:.4f}" for p in reps))
+    if len(reps) < 4:
+        raise AssertionError(f"{lane}: {len(reps)} concentric phases, want at least 4")
+    return host, t1 - t0, t2 - t1
+
+
+def _detect_all(pipe, frames, pageable: bool = False) -> tuple[np.ndarray, np.ndarray]:
+    """``detect_batch`` over every 64-frame batch, all queued on the card
+    before the first readback (``collect_detections`` queues up to 8), then
+    the tracker rows. ``pageable`` composes the path before the staging
+    ring from the pipeline's stages: a pageable ``.to()`` of each batch."""
+    import torch
+    from vbt_tpu_torch.ops.preprocess import preprocess_frames
+
+    dets = []
+    for i in range(0, len(frames), BATCH):
+        batch = frames[i:i + BATCH]
+        if pageable:
+            with torch.inference_mode():
+                x = torch.from_numpy(batch).to(pipe.device, non_blocking=True)
+                images = preprocess_frames(x, pipe.spec.input_size, pipe.dtype)
+                dets.append(pipe.postprocess(*pipe.run_model(images)))
+        else:
+            dets.append(pipe.detect_batch(batch))
+    out = [pipe.detections_to_tracker_inputs(d, 0.5) for d in dets]
+    return np.concatenate([r for r, _ in out]), np.concatenate([v for _, v in out])
+
+
+def _main_path(lane, pipe, frames, kernels, want_launches) -> dict:
+    """Drive one backbone's main path with every count at 0; check the
+    launches, the two trackers' dataframes and the analysis. Returns the
+    detect frames/s, the launches by kernel and the tracker inputs."""
+    import torch
+    from vbt_tpu_torch.cli.track import run_host_tracker, run_scan_tracker, tracks_to_data
 
     if pipe.dtype != torch.bfloat16 or not pipe.use_kernel:
         raise AssertionError(f"{lane}: served lane is {pipe.dtype}, use_kernel={pipe.use_kernel}")
@@ -347,17 +543,17 @@ def _main_path(lane, pipe, frames, kernels, want_launches) -> tuple[float, dict]
     for variant in by_variant:
         by_variant[variant] = 0
     t0 = time.perf_counter()
-    rows, valid = [], []
-    for i in range(BATCHES):
-        det = pipe.detect_batch(frames[i * BATCH:(i + 1) * BATCH])
-        r, v = pipe.detections_to_tracker_inputs(det, 0.5)
-        rows.append(r)
-        valid.append(v)
+    rows, valid = _detect_all(pipe, frames)
     t_detect = time.perf_counter() - t0
-    rows, valid = np.concatenate(rows), np.concatenate(valid)
-    tracks = run_host_tracker(rows, valid)
-    data = tracks_to_data(tracks, fps=30.0)
-    t_path = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    tracks = run_scan_tracker(rows, valid, pipe.device)  # K3; reads the result back
+    t_scan = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    host_tracks = run_host_tracker(rows, valid)
+    t_host = time.perf_counter() - t1
+    data = tracks_to_data(tracks, fps=FPS)
+    dxdy_err = _compare_track_data(lane, data, tracks_to_data(host_tracks, fps=FPS))
+    _analyse(lane, data)
     launches = {name: fn.launches for name, fn in kernels.items()}
     print(f"main path [{lane}]: launches {launches}")
     if launches != want_launches:
@@ -372,28 +568,39 @@ def _main_path(lane, pipe, frames, kernels, want_launches) -> tuple[float, dict]
     n_rows = len(data["id"])
     if n_rows < BATCH * BATCHES - 2 or not all(np.isfinite(data[c]).all() for c in data):
         raise AssertionError(f"{lane}: track data has {n_rows} rows or non-finite values")
-    ids = sorted(set(data["id"]))
-    print(f"main path [{lane}]: {frames.shape[0]} frames, {n_rows} track rows, ids {ids}; "
-          f"detect {t_detect:.3f} s ({frames.shape[0] / t_detect:.1f} frames/s), "
-          f"host tracker+rows {t_path - t_detect:.3f} s, whole {t_path:.3f} s")
-    return frames.shape[0] / t_detect, launches
+    print(f"main path [{lane}]: {frames.shape[0]} frames, {n_rows} track rows, ids "
+          f"{sorted(set(data['id']))}; detect {t_detect:.3f} s "
+          f"({frames.shape[0] / t_detect:.1f} frames/s), scan tracker (K3) {t_scan:.4f} s, "
+          f"host OC-SORT {t_host:.3f} s")
+    return {"fps": frames.shape[0] / t_detect, "launches": launches, "rows": rows,
+            "valid": valid, "dxdy_vs_host": dxdy_err}
 
 
 def _stage_spans(pipe, frames) -> dict:
-    """Device-stream time (ms) between the stages of one ``detect_batch``,
-    taken with CUDA events and no synchronisation between stages, so a span
-    includes any time the card waited for the host to launch its work."""
+    """Where one ``detect_batch`` of ``frames`` goes through the pinned ring,
+    in ms: the host's fill of a staging buffer (host clock), the copy on the
+    copy stream, the compute stream's wait for it, then the compute stream's
+    stages (CUDA events, no synchronisation between stages, so a span
+    includes any time the card waited for the host to launch its work)."""
     import torch
     from vbt_tpu_torch.ops.nms_cuda import nms
     from vbt_tpu_torch.ops.postprocess import gather_decode, top_k_candidates
     from vbt_tpu_torch.ops.preprocess import preprocess_frames
 
-    names = ["upload", "preprocess", "forward", "topk+decode", "nms", "readback"]
+    ring = pipe.staging(frames.shape)
+    names = ["wait", "preprocess", "forward", "topk+decode", "nms", "readback"]
     events = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    copy = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
     with torch.inference_mode():
+        t0 = time.perf_counter()
+        buf = ring.fill(frames)
+        fill_ms = (time.perf_counter() - t0) * 1e3
         events[0].record()
-        x = pipe._frames(frames)
-        events[1].record()
+        copy[0].record(ring.copy_stream)
+        x = ring.upload(buf)
+        copy[1].record(ring.copy_stream)
+        events[1].record()  # after the compute stream's wait for the copy
         images = preprocess_frames(x, pipe.spec.input_size, pipe.dtype)
         events[2].record()
         deltas, logits = pipe.run_model(images)
@@ -406,12 +613,40 @@ def _stage_spans(pipe, frames) -> dict:
         [t.cpu() for t in out]
         events[6].record()
     torch.cuda.synchronize()
-    return {n: events[i].elapsed_time(events[i + 1]) for i, n in enumerate(names)}
+    spans = {"fill (host)": fill_ms, "upload (copy stream)": copy[0].elapsed_time(copy[1])}
+    spans.update({n: events[i].elapsed_time(events[i + 1]) for i, n in enumerate(names)})
+    return spans
 
 
-def _profile(lane, pipe, batches) -> None:
-    """The device's busy share and its time by kernel over ``detect_batch``
-    plus readback of ``batches``, from the device events of
+def _upload_compare(lane, pipe, frames) -> None:
+    """The upload before the staging ring against the ring, in one run: one
+    batch's copy alone (pageable ``.to()`` against the pinned buffer's
+    non-blocking copy), then the whole detect loop composed both ways, in
+    turns (pageable, ring, ring, pageable)."""
+    import torch
+
+    batch = frames[:BATCH]
+    host = torch.from_numpy(batch)
+    pageable = _cuda_ms(lambda: host.to("cuda"), reps=3, warmup=1)
+    pinned_buf = pipe.staging(batch.shape).buffers[0]
+    pinned = _cuda_ms(lambda: pinned_buf.to("cuda", non_blocking=True), reps=3, warmup=1)
+    mb = batch.nbytes / 1e6
+    fps = {True: [], False: []}
+    for use_pageable in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _detect_all(pipe, frames, pageable=use_pageable)
+        fps[use_pageable].append(len(frames) / (time.perf_counter() - t0))
+    print(f"upload [{lane}] of one batch ({mb:.1f} MB uint8): pageable .to() {pageable:.3f} ms "
+          f"({mb / pageable:.2f} GB/s), pinned non-blocking copy {pinned:.3f} ms "
+          f"({mb / pinned:.2f} GB/s); detect loop over {len(frames)} frames, frames/s: "
+          f"pageable {fps[True][0]:.1f} {fps[True][1]:.1f}, ring {fps[False][0]:.1f} "
+          f"{fps[False][1]:.1f}")
+
+
+def _profile(lane, pipe, frames) -> None:
+    """The device's busy share and its time by kernel over the detect loop
+    of ``frames`` (:func:`_detect_all`), from the device events of
     ``torch.profiler`` (the host clock inside the profiled region, which the
     profiler's own per-op cost lengthens, is the window)."""
     import torch
@@ -420,8 +655,7 @@ def _profile(lane, pipe, batches) -> None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for frames in batches:
-            pipe.detections_to_tracker_inputs(pipe.detect_batch(frames), 0.5)
+        _detect_all(pipe, frames)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
@@ -438,7 +672,7 @@ def _profile(lane, pipe, batches) -> None:
         acc = by_name.setdefault(name, [0.0, 0])
         acc[0] += stop - start
         acc[1] += 1
-    print(f"profile [{lane}] over {len(batches)} batches: host window {wall_us / 1e3:.2f} ms, "
+    print(f"profile [{lane}] over {len(frames) // BATCH} batches: host window {wall_us / 1e3:.2f} ms, "
           f"device busy {busy_us / 1e3:.2f} ms, idle share {1 - busy_us / wall_us:.3f}")
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"  {us / 1e3:9.3f} ms {us / busy_us:6.1%} x{n:<5d} {name[:90]}")
@@ -460,6 +694,7 @@ def main(argv=None) -> int:
     from vbt_tpu_torch.ops import _build
     from vbt_tpu_torch.ops.fused_mbconv import fused_mbconv
     from vbt_tpu_torch.ops.nms_cuda import nms
+    from vbt_tpu_torch.ops.track_scan_cuda import track_scan
     from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
     from vbt_tpu_torch.utils.device import resolve_device
 
@@ -499,25 +734,33 @@ def main(argv=None) -> int:
             x = _block_input(p, 3, dtype, gen, dev)
             k2_err[dtype_name] = max(k2_err[dtype_name], _hold_k2(label, x, p, dtype_name))
 
+    k3_err = _hold_k3_scenes()
+
     # 4. The main path, bf16 on the card, each backbone with the counts at 0.
     t0 = time.perf_counter()
-    frames = plate_frames(BATCH * BATCHES, HEIGHT, WIDTH, seed=0)
+    frames = plate_frames(BATCH * BATCHES, HEIGHT, WIDTH, seed=0, period=PERIOD)
     print(f"made {frames.shape[0]} frames {HEIGHT}x{WIDTH} in {time.perf_counter() - t0:.2f} s")
-    kernels = {"nms": nms, "fused_mbconv": fused_mbconv}
+    kernels = {"nms": nms, "fused_mbconv": fused_mbconv, "track_scan": track_scan}
     pipe = DetectionPipeline.from_model_arg(CKPT, device="cuda")
     small = frames[:BATCH]
-    fps_xla, seen_xla = _main_path("xla", pipe, frames, kernels,
-                                   {"nms": BATCHES, "fused_mbconv": 0})
+    xla = _main_path("xla", pipe, frames, kernels,
+                     {"nms": BATCHES, "fused_mbconv": 0, "track_scan": 1})
     turbo = DetectionPipeline.from_model_arg(CKPT, device="cuda", backbone="turbo")
     n_fused = len(turbo.turbo.fused_names)
-    fps_turbo, seen_turbo = _main_path("turbo", turbo, frames, kernels,
-                                       {"nms": BATCHES, "fused_mbconv": n_fused * BATCHES})
-    print(f"detect throughput, bf16, B = {BATCH}: xla {fps_xla:.1f} frames/s, turbo "
-          f"{fps_turbo:.1f} frames/s ({n_fused} fused blocks: {turbo.turbo.fused_names})")
+    turbo_run = _main_path("turbo", turbo, frames, kernels,
+                           {"nms": BATCHES, "fused_mbconv": n_fused * BATCHES, "track_scan": 1})
+    print(f"detect throughput, bf16, B = {BATCH}: xla {xla['fps']:.1f} frames/s, turbo "
+          f"{turbo_run['fps']:.1f} frames/s ({n_fused} fused blocks: {turbo.turbo.fused_names})")
+    # 3 (continued). K3 against its plain version on the main path's detections.
+    cfg = _k3_cfg(max_age=30, asso="diou", iou_threshold=0.1, max_tracks=16)
+    for lane, run in (("xla", xla), ("turbo", turbo_run)):
+        k3_err = max(k3_err, _hold_k3(f"main path detections, {lane}", cfg, run["rows"][None],
+                                      run["valid"][None], np.ones((1, len(run["rows"])), bool)))
     _compare_pipelines(pipe, turbo, small)
 
-    records = _time_kernels(pipe, small, dev, nms_err, k2_err, k2_timing_inputs, seen_xla,
-                            seen_turbo)
+    records = _time_kernels(pipe, small, dev, nms_err, k2_err, k2_timing_inputs,
+                            xla["launches"], turbo_run["launches"])
+    records.append(_time_k3(cfg, xla, k3_err))
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
     _where_the_time_goes(pipe, turbo, frames)
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
@@ -693,6 +936,89 @@ def _time_kernels(pipe, small, dev, nms_err, k2_err, k2_timing_inputs, seen_xla,
     return [nms_record, k2_record]
 
 
+def _k3_work(dets, valid, report, s) -> tuple[int, int]:
+    """(bytes, operations) of one scan over these inputs: the detections and
+    masks read once and every output written once; per active frame the
+    predict of every live slot (about 150 operations), the affinity and
+    momentum of every valid detection against every slot (about 60) and the
+    update of every reported slot (about 750; 4x4 inverse and 7x7 products).
+    The Hungarian's share is left out, so the bound is low."""
+    c, t, d, _ = dets.shape
+    n_bytes = dets.numel() * 4 + valid.numel() + c * t * s * (1 + 4 * 4 + 4 + 4 + 4 + 2 * 4)
+    n_valid = int(valid.sum())
+    n_ops = c * t * s * 150 + n_valid * s * 60 + int(report.sum()) * 750
+    return n_bytes, n_ops
+
+
+def _time_k3(cfg, xla, k3_err) -> dict:
+    """Phase 6, K3: CUDA events on the main path's detections (C = 1,
+    T = 256) and on synthetic 60 s clips (C = 1 and 16, T = 1800), the host
+    OC-SORT on the same 256 frames, the plain version on the card over the
+    first 16 of them."""
+    import torch
+    from vbt_tpu_torch.cli.track import run_host_tracker
+    from vbt_tpu_torch.io.synthetic import plate_detections
+    from vbt_tpu_torch.ops.track_scan_cuda import track_scan
+    from vbt_tpu_torch.tracking.scan import scan_clips_plain
+
+    def inputs(rows, valid):
+        dets = torch.from_numpy(np.ascontiguousarray(rows, np.float32)).cuda()
+        mask = torch.from_numpy(np.ascontiguousarray(valid)).cuda()
+        return dets, mask, torch.ones(dets.shape[:2], dtype=torch.bool, device="cuda")
+
+    main = inputs(xla["rows"][None], xla["valid"][None])
+    t = main[0].shape[1]
+    ms = _cuda_ms(lambda: track_scan(cfg, *main), reps=10)
+    report = track_scan(cfg, *main)[0]
+    long_clips = [plate_detections(1800, 1, seed=100 + i, dropout=0.02, d_cap=D)
+                  for i in range(16)]
+    clips16 = inputs(np.stack([c[0] for c in long_clips]), np.stack([c[1] for c in long_clips]))
+    clip1 = tuple(a[:1].contiguous() for a in clips16)
+    ms_1800 = _cuda_ms(lambda: track_scan(cfg, *clip1), reps=3, warmup=1)
+    ms_1800_c16 = _cuda_ms(lambda: track_scan(cfg, *clips16), reps=3, warmup=1)
+    host_s = min(_host_s(lambda: run_host_tracker(xla["rows"], xla["valid"])) for _ in range(3))
+    head = tuple(a[:, :16].contiguous() for a in main)
+    plain_s = min(_host_s(lambda: (scan_clips_plain(cfg, *head), torch.cuda.synchronize()))
+                  for _ in range(2))
+    n_bytes, n_ops = _k3_work(main[0], main[1], report, cfg.max_tracks)
+    byte_ms, op_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_OPS_PER_S * 1e3
+    record = {
+        "name": "track_scan",
+        "route": "cuda",
+        "source": "vbt_tpu_torch/csrc/track_scan.cu",
+        "replaces": "vbt_tpu/tracking/scan.py:476",
+        "launches": xla["launches"]["track_scan"],
+        "max_abs_err": k3_err,
+        "ms": ms,
+        "plain_ms": plain_s * 1e3,
+        "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+        "library_ms": None,
+        "timed": f"ms: the main path's {t} frames, C = 1, CUDA events over 10 launches; "
+                 "plain_ms: the plain version on the card over the first 16 of those frames, "
+                 "host clock",
+        "ms_per_frame": ms / t,
+        "plain_ms_per_frame": plain_s * 1e3 / 16,
+        "host_ocsort_ms": host_s * 1e3,
+        "t1800_c1_ms": ms_1800,
+        "t1800_c16_ms": ms_1800_c16,
+        "replaces_also": "vbt_tpu/runtime/batch_runner.py:24 (track_clips); no Pallas kernel",
+    }
+    print(f"track_scan: {ms:.4f} ms for {t} frames ({ms / t * 1e3:.2f} us a frame), C = 1; "
+          f"T = 1800: C = 1 {ms_1800:.3f} ms, C = 16 {ms_1800_c16:.3f} ms; host OC-SORT "
+          f"{host_s * 1e3:.2f} ms for the same {t} frames; plain version on the card "
+          f"{plain_s * 1e3 / 16:.2f} ms a frame (16 frames); bound "
+          f"{record['bound_ms'] * 1e3:.3f} us ({record['bound_by']}: {n_bytes / 1e6:.3f} MB, "
+          f"{n_ops / 1e6:.2f} M operations)")
+    return record
+
+
+def _host_s(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
 def _where_the_time_goes(pipe, turbo, frames) -> None:
     """Phase 7: where the time of one 64-frame batch goes, each backbone."""
     import torch
@@ -706,12 +1032,13 @@ def _where_the_time_goes(pipe, turbo, frames) -> None:
     print(f"forward on the device, bf16, B = {BATCH}, mean of 10: xla "
           f"{fwd['xla']:.3f} ms, turbo {fwd['turbo']:.3f} ms")
     for lane, lane_pipe in (("xla", pipe), ("turbo", turbo)):
+        _upload_compare(lane, lane_pipe, frames)
         spans = [_stage_spans(lane_pipe, frames[i * BATCH:(i + 1) * BATCH])
                  for i in range(min(3, BATCHES))]
-        print(f"stage spans [{lane}] on the device stream, ms, median of {len(spans)} batches: "
+        print(f"stage spans [{lane}] through the pinned ring, ms, median of {len(spans)} batches: "
               + ", ".join(f"{n} {sorted(s[n] for s in spans)[len(spans) // 2]:.3f}"
                           for n in spans[0]))
-        _profile(lane, lane_pipe, [frames[i * BATCH:(i + 1) * BATCH] for i in range(2)])
+        _profile(lane, lane_pipe, frames)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""Tests that need a CUDA card: the NMS and fused-MBConv kernels against
-their plain versions on the card, and the served bf16 pipelines (XLA and
-turbo backbones) launching them.
+"""Tests that need a CUDA card: the NMS, fused-MBConv and scan-tracker
+kernels against their plain versions, the served bf16 pipelines (XLA and
+turbo backbones) launching them, the pinned upload ring and the torch
+analysis lane on the card.
 
 They skip without a card. On the machine with one, run them without the
 JAX test configuration (this file imports neither jax nor vbt_tpu):
@@ -12,7 +13,13 @@ boxes 1e-5. Fused MBConv: 2e-4
 absolute plus relative in float32 (f32 sums in another order); 2e-2
 absolute plus relative in bfloat16, where the other order (the tensor
 cores' own in the "mma" kernel) can flip the bf16 rounding of an
-intermediate (one step is 2^-8 relative).
+intermediate (one step is 2^-8 relative). Scan tracker (K3, float32) on
+the card against its plain version on CPU copies of the same inputs:
+report, track_id and conf exact, box within 1e-6 (reported observations
+are copies; state boxes carry the Kalman update's own rounding) and dxdy
+within 1e-4 (the kernel's 4x4 inverse and 7x7 products round in their own
+order, which the 1e4 initial covariances amplify early in a track); C
+ragged clips in one launch equal to single-clip launches bit for bit.
 """
 
 import os
@@ -246,3 +253,131 @@ def test_turbo_pipeline_launches_both_kernels(dev):
     assert fused_mbconv.launches == k2 + 5 and nms.launches == k1 + 1
     assert fused_mbconv.launches_by_variant["mma"] == mma + 5  # the served bf16 lane
     assert valid[:, 0].all() and np.isfinite(rows).all()
+
+
+def _k3_cfg(kind, kw):
+    from vbt_tpu_torch.tracking.scan import ScanTrackerConfig
+
+    return getattr(ScanTrackerConfig, kind)(**kw)
+
+
+def _assert_k3_matches_plain(got, want):
+    rep = want.report
+    assert torch.equal(got.report.cpu(), rep)
+    assert torch.equal(got.track_id.cpu()[rep], want.track_id[rep])
+    assert torch.equal(got.conf.cpu()[rep], want.conf[rep])
+    assert (got.box.cpu()[rep] - want.box[rep]).abs().max().item() <= 1e-6
+    assert (got.dxdy.cpu()[rep] - want.dxdy[rep]).abs().max().item() <= 1e-4
+
+
+def _k3_case_names():
+    from vbt_tpu_torch.io.synthetic import tracker_cases
+
+    return sorted(tracker_cases())
+
+
+@pytest.mark.parametrize("name", _k3_case_names())
+def test_track_scan_kernel_matches_plain(dev, name):
+    from vbt_tpu_torch.io.synthetic import tracker_cases
+    from vbt_tpu_torch.ops.track_scan_cuda import track_scan
+    from vbt_tpu_torch.tracking.scan import track_video
+
+    kind, kw, (dets, valid), skip = tracker_cases()[name]
+    cfg = _k3_cfg(kind, kw)
+    dets = torch.from_numpy(dets.astype(np.float32))
+    valid = torch.from_numpy(valid)
+    want = track_video(cfg, dets, valid, skip)
+    before = track_scan.launches
+    got = track_video(cfg, dets.to(dev), valid.to(dev), skip)
+    torch.cuda.synchronize()
+    assert track_scan.launches == before + 1
+    _assert_k3_matches_plain(got, want)
+
+
+def test_track_scan_clips_equal_single_launches(dev):
+    from vbt_tpu_torch.io.synthetic import ragged_clips
+    from vbt_tpu_torch.runtime.batch_runner import pad_clips, track_clips
+    from vbt_tpu_torch.tracking.scan import track_video
+
+    cfg = _k3_cfg("ocsort", dict(max_age=10, asso="diou", iou_threshold=0.1, max_tracks=8))
+    clips = ragged_clips()
+    arrays = pad_clips([c[0].astype(np.float32) for c in clips], [c[1] for c in clips])
+    batched = track_clips(cfg, *(torch.from_numpy(a).to(dev) for a in arrays))
+    want = track_clips(cfg, *(torch.from_numpy(a) for a in arrays))
+    _assert_k3_matches_plain(batched, want)
+    for i, (d, v) in enumerate(clips):
+        single = track_video(cfg, torch.from_numpy(d.astype(np.float32)).to(dev),
+                             torch.from_numpy(v).to(dev))
+        t = d.shape[0]
+        for got, one in zip(batched, single):
+            assert torch.equal(got[i, :t], one)
+        assert not batched.report[i, t:].any()
+
+
+def test_track_scan_kernel_rejects_what_it_cannot_take(dev):
+    from vbt_tpu_torch.ops.track_scan_cuda import track_scan
+
+    cfg = _k3_cfg("ocsort", {})
+    dets = torch.zeros(1, 4, 25, 6, device=dev)
+    valid = torch.ones(1, 4, 25, dtype=torch.bool, device=dev)
+    frames = torch.ones(1, 4, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        track_scan(cfg, dets.double(), valid, frames)
+    with pytest.raises(ValueError):
+        track_scan(cfg._replace(max_tracks=33), dets, valid, frames)
+    with pytest.raises(ValueError):
+        track_scan(cfg, torch.zeros(1, 4, 33, 6, device=dev),
+                   torch.ones(1, 4, 33, dtype=torch.bool, device=dev), frames)
+    with pytest.raises(ValueError):
+        track_scan(cfg, dets.transpose(1, 2).contiguous().transpose(1, 2), valid, frames)
+    with pytest.raises(ValueError):
+        track_scan(cfg, dets, valid.cpu(), frames)
+
+
+def test_scan_tracker_of_the_cli_launches_kernel(dev):
+    from vbt_tpu_torch.cli.track import run_host_tracker, run_scan_tracker
+    from vbt_tpu_torch.io.synthetic import plate_detections
+    from vbt_tpu_torch.ops.track_scan_cuda import track_scan
+
+    dets, valid = plate_detections(120, 1, miss={30, 31, 32}, seed=9, d_cap=25)
+    before = track_scan.launches
+    got = run_scan_tracker(dets, valid, dev)
+    assert track_scan.launches == before + 1
+    host = run_host_tracker(dets, valid)
+    assert (got["report"].sum(1) == host["report"].sum(1)).all()
+    assert set(got["track_id"][got["report"]]) == set(host["track_id"][host["report"]])
+
+
+def test_upload_ring_on_the_card_equals_plain_copy(dev):
+    from vbt_tpu_torch.runtime.upload import RING_DEPTH, StagingRing
+
+    ring = StagingRing((4, 72, 128, 3), dev)
+    assert all(b.is_pinned() for b in ring.buffers)
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, 256, size=(4, 72, 128, 3), dtype=np.uint8)
+               for _ in range(2 * RING_DEPTH + 1)]
+    uploaded = []
+    for frames in batches:
+        buf = ring.lend()
+        buf[...] = frames
+        uploaded.append(ring.upload(buf))
+    torch.cuda.synchronize()
+    for frames, got in zip(batches, uploaded):
+        assert torch.equal(got, torch.from_numpy(frames).to(dev))
+
+
+def test_analysis_on_the_card_equals_cpu(dev):
+    from vbt_tpu_torch.analysis.velocity_torch import analyze_series, to_phase_list
+
+    rng = np.random.default_rng(3)
+    n = 300
+    t = np.arange(n) / 30.0
+    y = 0.5 + 0.2 * np.sin(2 * np.pi * 0.4 * t) + rng.normal(0, 0.002, n)
+    x = 0.4 + rng.normal(0, 0.005, n)
+    arrays = [t, x, y, np.gradient(x), np.gradient(y), np.full(n, 0.16), np.full(n, 0.28)]
+    got = to_phase_list(analyze_series(*arrays, device=dev))
+    want = to_phase_list(analyze_series(*arrays, device="cpu"))
+    assert len(want) > 0 and [p.type for p in got] == [p.type for p in want]
+    for a, b in zip(got, want):
+        assert (a.time_start, a.time_end) == (b.time_start, b.time_end)
+        assert a.rom == pytest.approx(b.rom, rel=1e-12)

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``vbt_tpu_torch`` loads
 no ``jax``, ``flax`` or ``vbt_tpu`` module, nor the optional host packages
-(cv2, pandas, click) that ``chip_smoke.py`` runs without; and a CUDA request
+(cv2, pandas, click, matplotlib, seaborn) that ``chip_smoke.py`` runs
+without; and a CUDA request
 on a machine without a card raises instead of falling back to the CPU."""
 
 import os
@@ -20,9 +21,11 @@ names = [m.name for m in pkgutil.walk_packages(vbt_tpu_torch.__path__, "vbt_tpu_
 for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
-             if k.split(".")[0] in ("jax", "jaxlib", "flax", "vbt_tpu", "cv2", "pandas", "click"))
+             if k.split(".")[0] in ("jax", "jaxlib", "flax", "vbt_tpu", "cv2", "pandas", "click",
+                                    "matplotlib", "seaborn"))
 print(len(names))
 print(",".join(bad))
+print(",".join(names))
 """
 
 
@@ -30,8 +33,11 @@ def test_import_loads_no_jax_or_reference_package():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120, check=True)
-    count, bad = (out.stdout + "\n").split("\n")[:2]
-    assert int(count) >= 25, out.stdout  # every module of the slice was imported
+    count, bad, names = (out.stdout + "\n").split("\n")[:3]
+    assert int(count) >= 43, out.stdout  # every module of the slice was imported
+    for module in ("analysis.velocity_torch", "cli.plot", "ops.track_scan_cuda",
+                   "runtime.batch_runner", "runtime.upload", "tracking.scan"):
+        assert f"vbt_tpu_torch.{module}" in names.split(","), module
     assert bad == "", f"port imported {bad}"
 
 

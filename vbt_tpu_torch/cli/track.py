@@ -1,20 +1,29 @@
-"""Track weight plates in videos: detection + host OC-SORT -> dataframe.
+"""Track weight plates in videos: detection + scan tracker -> dataframe.
 
 Port of ``vbt_tpu.cli.track`` with the same options, names and defaults,
-dataframe schema and filename grammar, except:
+dataframe schema and filename grammar:
 
-- ``--tracker`` defaults to ``host``, the reference-exact per-frame OC-SORT
-  loop; ``--tracker scan`` (the batched scan tracker) comes with ROADMAP
-  Queue 1 item 8 and is refused until then;
-- ``--multi_clip`` and ``--time_shard`` come with Queue 1 item 10, and
-  ``--profile_dir`` (a device trace) with item 15; each is refused with a
-  usage error naming its item;
+- ``--tracker scan`` (the default) runs the whole video through the batched
+  OC-SORT scan in float32 on the pipeline's device: kernel K3
+  (``csrc/track_scan.cu``) on the card, its plain version on the CPU.
+  ``--tracker host`` is the reference-exact per-frame OC-SORT loop;
+- ``--multi_clip`` tracks every SRC in one scan (one K3 launch, a warp a
+  clip);
 - the detector runs on CUDA, bf16, with the NMS kernel
   (:mod:`vbt_tpu_torch.runtime.pipeline`); without a card it raises.
 
+``--time_shard`` (ROADMAP Queue 1 item 10) and ``--profile_dir`` (item 15)
+are refused with a usage error naming their item.
+
+Precision: as in the JAX CLI, the scan runs in float32, so the exported
+``dx, dy`` carry an early-track Kalman transient against a float64 run
+(the huge initial covariances cancel in float32); ids, positions and plate
+sizes are unaffected, and nothing downstream reads ``dx``.
+
 click, cv2 and pandas are imported only where they are used, so the
 library functions here (:func:`collect_detections`,
-:func:`run_host_tracker`, :func:`tracks_to_data`) run without them.
+:func:`run_scan_tracker`, :func:`run_host_tracker`, :func:`tracks_to_data`)
+run without them.
 
 Usage: ``python -m vbt_tpu_torch.cli.track --df_dir dfs/ video.mp4``
 """
@@ -24,10 +33,12 @@ from __future__ import annotations
 import os
 
 import numpy as np
+import torch
 
 from vbt_tpu_torch.contract.schema import build_df_filename, build_track_df, max_travel_id
 from vbt_tpu_torch.io.video import VideoReader, VideoWriter, draw_bar_path, draw_bounding_box
 from vbt_tpu_torch.tracking import OCSort
+from vbt_tpu_torch.tracking.scan import ScanTrackerConfig, track_video
 from vbt_tpu_torch.utils.profiling import StageTimer
 
 MAX_AGE = 30
@@ -36,21 +47,32 @@ D_CAP = 25  # detections per frame (NMS contract)
 TRACK_SLOTS = 16  # tracks reported per frame, as the JAX CLI's trackers
 
 NOT_PORTED = {
-    "--tracker scan": "ROADMAP.md Queue 1 item 8 (scan tracker)",
-    "--multi_clip": "ROADMAP.md Queue 1 item 10 (multi-clip and multi-GPU)",
-    "--time_shard": "ROADMAP.md Queue 1 item 10 (multi-clip and multi-GPU)",
+    "--time_shard": "ROADMAP.md Queue 1 item 10 (multi-GPU: time sharding)",
     "--profile_dir": "ROADMAP.md Queue 1 item 15 (operational shell: profiling)",
 }
+
+
+def scan_config() -> ScanTrackerConfig:
+    """The reference's tracker: OC-SORT, max_age 30, DIoU, IoU 0.1, 16 slots."""
+    return ScanTrackerConfig.ocsort(max_age=MAX_AGE, asso="diou", iou_threshold=0.1,
+                                    max_tracks=TRACK_SLOTS)
+
+
+def _tracks_numpy(out) -> dict:
+    return {"report": out.report.cpu().numpy(), "box": out.box.cpu().numpy(),
+            "track_id": out.track_id.cpu().numpy(), "conf": out.conf.cpu().numpy(),
+            "dxdy": out.dxdy.cpu().numpy()}
 
 
 def collect_detections(detector, src: str, threshold: float, batch_size: int = 64):
     """Pass 1: decode + batched detection over the whole video.
 
-    Returns (dets (T, 25, 6) normalized, valid (T, 25), meta). Up to 8
+    Returns (dets (T, 25, 6) normalized, valid (T, 25), meta). Frames are
+    decoded straight into the pipeline's pinned staging buffers. Up to 8
     batches are queued on the device before the oldest is read back, so
     decoding overlaps device work while resident inputs stay bounded.
     """
-    reader = VideoReader(src, batch_size=batch_size)
+    reader = VideoReader(src, batch_size=batch_size, lend=detector.lend_frames)
     max_in_flight = 8
     pending: list = []
     all_rows, all_valid = [], []
@@ -70,6 +92,14 @@ def collect_detections(detector, src: str, threshold: float, batch_size: int = 6
     if not all_rows:
         return np.zeros((0, D_CAP, 6)), np.zeros((0, D_CAP), bool), reader.meta
     return np.concatenate(all_rows), np.concatenate(all_valid), reader.meta
+
+
+def run_scan_tracker(dets: np.ndarray, valid: np.ndarray, device="cuda") -> dict:
+    """Pass 2: one scan over the frame axis in float32 on ``device`` (kernel
+    K3 on the card, the plain version on the CPU)."""
+    out = track_video(scan_config(), torch.as_tensor(dets, dtype=torch.float32, device=device),
+                      torch.as_tensor(valid, device=device))
+    return _tracks_numpy(out)
 
 
 def run_host_tracker(dets: np.ndarray, valid: np.ndarray) -> dict:
@@ -154,11 +184,41 @@ def render_annotated_video(src: str, tracks: dict, video_path: str, display: boo
     writer.release()
 
 
+def track_many(detector, sources: list[str], detection_treshold: float, batch_size: int = 64,
+               timer: StageTimer | None = None) -> dict[str, dict]:
+    """Track several videos in one scan: detections are collected per clip,
+    padded to a common length, and every clip runs in one launch of kernel
+    K3 on the pipeline's device (a warp a clip). Returns {src: data dict}."""
+    from vbt_tpu_torch.runtime.batch_runner import pad_clips, track_clips
+
+    timer = timer if timer is not None else StageTimer()
+    per_dets, per_valid, metas = [], [], []
+    with timer.stage("decode+detect"):
+        for s in sources:
+            dets, valid, meta = collect_detections(detector, s, detection_treshold, batch_size)
+            per_dets.append(dets)
+            per_valid.append(valid)
+            metas.append(meta)
+    with timer.stage("tracker[multi-clip]"):
+        dets, det_valid, frame_valid = pad_clips(per_dets, per_valid)
+        dev = detector.device
+        out = track_clips(scan_config(), torch.as_tensor(dets, dtype=torch.float32, device=dev),
+                          torch.as_tensor(det_valid, device=dev),
+                          torch.as_tensor(frame_valid, device=dev))
+        out = _tracks_numpy(out)
+    results = {}
+    with timer.stage("dataframe"):
+        for i, s in enumerate(sources):
+            t = per_dets[i].shape[0]
+            results[s] = tracks_to_data({k: v[i][:t] for k, v in out.items()}, metas[i].fps)
+    return results
+
+
 def track_one(
     detector,
     src: str,
     detection_treshold: float,
-    tracker_kind: str = "host",
+    tracker_kind: str = "scan",
     video_path: str | None = None,
     display: bool = False,
     frame_stride: int = 1,
@@ -166,9 +226,8 @@ def track_one(
     timer: StageTimer | None = None,
 ) -> dict:
     """One video -> the columnar capture dict (see :func:`tracks_to_data`)."""
-    if tracker_kind != "host":
-        raise NotImplementedError(
-            f"tracker {tracker_kind!r} is not ported yet: {NOT_PORTED['--tracker scan']}")
+    if tracker_kind not in ("scan", "host"):
+        raise ValueError(f"tracker_kind must be 'scan' or 'host', got {tracker_kind!r}")
     timer = timer if timer is not None else StageTimer()
     with timer.stage("decode+detect"):
         dets, valid, meta = collect_detections(detector, src, detection_treshold, batch_size)
@@ -177,7 +236,10 @@ def track_one(
         keep = (np.arange(dets.shape[0]) + 1) % frame_stride == 0
         dets, valid = dets[keep], valid[keep]
     with timer.stage(f"tracker[{tracker_kind}]"):
-        tracks = run_host_tracker(dets, valid)
+        if tracker_kind == "scan":
+            tracks = run_scan_tracker(dets, valid, detector.device)
+        else:
+            tracks = run_host_tracker(dets, valid)
     if video_path is not None:
         with timer.stage("annotate+encode"):
             render_annotated_video(src, tracks, video_path, display)
@@ -186,8 +248,13 @@ def track_one(
         return tracks_to_data(tracks, fps)
 
 
+def _export_df(data: dict, src: str, model: str, df_dir: str) -> None:
+    df = build_track_df(data)
+    df.to_pickle(os.path.join(df_dir, build_df_filename(src, max_travel_id(df), model)))
+
+
 def run(src, model, detection_treshold, df_dir, video_dir, display, frame_stride,
-        batch_size, timing, device="cuda"):
+        batch_size, timing, tracker="scan", multi_clip=False, device="cuda"):
     """The body of the CLI, callable without click."""
     from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
 
@@ -200,15 +267,25 @@ def run(src, model, detection_treshold, df_dir, video_dir, display, frame_stride
     for s in src:
         if not os.path.isfile(s):
             raise FileNotFoundError(s)
+    if multi_clip and len(src) > 1:
+        results = track_many(detector, list(src), detection_treshold, batch_size=batch_size,
+                             timer=timer)
+        if df_dir is not None:
+            for s, data in results.items():
+                if data["id"]:
+                    _export_df(data, s, model, df_dir)
+        if timing:
+            print(timer.report())
+        return
+    for s in src:
         video_path = None
         if video_dir is not None:
             video_path = os.path.join(video_dir, f"{os.path.basename(s).split('.')[0]}.mp4")
-        data = track_one(detector, s, detection_treshold, tracker_kind="host",
+        data = track_one(detector, s, detection_treshold, tracker_kind=tracker,
                          video_path=video_path, display=display,
                          frame_stride=frame_stride, batch_size=batch_size, timer=timer)
         if df_dir is not None and data["id"]:
-            df = build_track_df(data)
-            df.to_pickle(os.path.join(df_dir, build_df_filename(s, max_travel_id(df), model)))
+            _export_df(data, s, model, df_dir)
     if timing:
         print(timer.report())
 
@@ -232,9 +309,9 @@ def make_command():
                   help="Directory for exporting the video with tracked objects and bar path. If not set the videos with tracking won't be exported.")
     @click.option("--threads", default=4, show_default=True,
                   help="Kept for CLI compatibility (the reference's TFLite interpreter thread count); ignored.")
-    @click.option("--tracker", default="host", type=click.Choice(["scan", "host"]),
+    @click.option("--tracker", default="scan", type=click.Choice(["scan", "host"]),
                   show_default=True,
-                  help="Reference-exact host OC-SORT loop; 'scan' is not ported yet.")
+                  help="Batched scan tracker (kernel K3 on the card) or reference-exact host loop.")
     @click.option("--display", is_flag=True, help="Show frames while tracking (requires a GUI).")
     @click.option("--frame_stride", default=1, type=int, show_default=True,
                   help="Process every Nth frame (the reference's %16 perf hack; golden dataframes use 1).")
@@ -244,7 +321,7 @@ def make_command():
                   help="Device trace directory (not ported yet).")
     @click.option("--timing", is_flag=True, help="Print per-stage wall-clock accounting.")
     @click.option("--multi_clip", is_flag=True,
-                  help="Track all SRC videos in one batched program (not ported yet).")
+                  help="Track all SRC videos in one scan on the card, a warp a clip (no per-video video export in this mode).")
     @click.option("--time_shard", is_flag=True,
                   help="Shard each video's frame axis over devices (not ported yet).")
     def command(src, model, detection_treshold, display_image_height, df_dir, video_dir,
@@ -254,17 +331,12 @@ def make_command():
         and create a dataframe containing the detected objects their raw
         and filtered positions and velocities at specific times in the video."""
         del display_image_height, threads
-        refused = {
-            "--tracker scan": tracker == "scan",
-            "--multi_clip": multi_clip,
-            "--time_shard": time_shard,
-            "--profile_dir": profile_dir is not None,
-        }
+        refused = {"--time_shard": time_shard, "--profile_dir": profile_dir is not None}
         for flag, given in refused.items():
             if given:
                 raise click.UsageError(f"{flag} is not ported yet: {NOT_PORTED[flag]}")
         run(src, model, detection_treshold, df_dir, video_dir, display, frame_stride,
-            batch_size, timing)
+            batch_size, timing, tracker=tracker, multi_clip=multi_clip)
 
     return command
 

@@ -1,17 +1,20 @@
 """Tracking-dataframe schema and filename grammar.
 
-Copy of ``vbt_tpu.contract.schema``'s export side, with pandas imported
-inside the functions that build dataframes:
+Copy of ``vbt_tpu.contract.schema``'s export and parse sides, with pandas
+imported inside the functions that build dataframes:
 
 - columns and dtypes (``id`` int64, everything else float64);
 - rows sorted by ``(id, time)`` with the per-frame insertion index kept;
 - the filename ``{video}_id{N}_{model}.pkl.gz``, where ``N`` is the track
-  id with the largest cumulative Euclidean travel.
+  id with the largest cumulative Euclidean travel, and its parser, which
+  the plot CLI uses to find the track to analyse.
 """
 
 from __future__ import annotations
 
 import os
+import re
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -39,12 +42,38 @@ TRACK_DTYPES = {
 }
 
 
+# The video stem, an ``_id`` separator, the integer track id, the model
+# name and the ``.pkl.gz`` extension.
+_FILENAME_RE = re.compile(r"(?P<video>\S*)_id(?P<tracking_id>\d+)_(?P<model>\S*)\.pkl\.gz")
+
+
+@dataclass(frozen=True)
+class TrackFileName:
+    """Parsed fields of an exported dataframe filename."""
+
+    video: str
+    tracking_id: int
+    model: str
+
+    def render(self) -> str:
+        return f"{self.video}_id{self.tracking_id}_{self.model}.pkl.gz"
+
+
+def parse_df_filename(path: str) -> TrackFileName | None:
+    """Parse ``{video}_id{N}_{model}.pkl.gz``; None when it does not match."""
+    m = _FILENAME_RE.match(os.path.basename(path))
+    if m is None:
+        return None
+    return TrackFileName(video=m.group("video"), tracking_id=int(m.group("tracking_id")),
+                         model=m.group("model"))
+
+
 def build_df_filename(video_path: str, tracking_id: int, model_path: str) -> str:
     """``{video}_id{N}_{model}.pkl.gz`` from the basenames of the video and
     model paths, each cut at its first ``.``."""
     video = os.path.basename(video_path).split(".")[0]
     model = os.path.basename(model_path).split(".")[0]
-    return f"{video}_id{int(tracking_id)}_{model}.pkl.gz"
+    return TrackFileName(video=video, tracking_id=int(tracking_id), model=model).render()
 
 
 def build_track_df(data: dict[str, list]):

@@ -1,31 +1,41 @@
-"""A synthetic lifting scene in numpy, made from a seed.
+"""Synthetic lifting scenes in numpy, made from a seed.
 
-A dark bumper-plate-like disc (rim, inner ring, bright hub) on a bar moves
-vertically over a blocky textured background. The shipped lite0 detector
-finds the disc with a high score, so the scene drives detection and
-tracking end to end without video files or OpenCV: ``chip_smoke.py`` feeds
-its frames straight to the pipeline, and the tests write them to a video.
+:func:`plate_frames`: a dark bumper-plate-like disc (rim, inner ring,
+bright hub) on a bar moves vertically over a blocky textured background.
+The shipped lite0 detector finds the disc with a high score, so the scene
+drives detection and tracking end to end without video files or OpenCV:
+``chip_smoke.py`` feeds its frames straight to the pipeline, and the tests
+write them to a video.
+
+:func:`plate_detections` and :func:`crossing_detections` are tracker
+inputs without a detector: per-frame detection rows of plates moving up
+and down side by side (with misses, dropout and jitter; the scenes of
+tests/test_tracker_scan.py) or crossing each other, padded to a fixed
+number of rows a frame.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+PLATE_AMPLITUDE = 0.15  # of the frame height: the disc's center moves +-0.15 H
+PLATE_RADIUS = 0.3  # of the frame height
+
 
 def plate_frames(n: int, height: int, width: int, seed: int = 0,
                  period: int = 32) -> np.ndarray:
     """``n`` uint8 RGB frames (n, height, width, 3); the disc's center
-    moves as ``0.5 + 0.15 sin(2 pi t / period)`` of the height."""
+    moves as ``0.5 + PLATE_AMPLITUDE sin(2 pi t / period)`` of the height."""
     rng = np.random.default_rng(seed)
     cell = max(1, height // 30)
     bg = rng.integers(90, 170, size=(-(-height // cell), -(-width // cell), 3), dtype=np.uint8)
     bg = np.repeat(np.repeat(bg, cell, 0), cell, 1)[:height, :width]
     yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
-    r = 0.3 * height
+    r = PLATE_RADIUS * height
     ring = max(1.0, height / 240)
     out = np.empty((n, height, width, 3), np.uint8)
     for t in range(n):
-        cy = height * (0.5 + 0.15 * np.sin(2 * np.pi * t / period))
+        cy = height * (0.5 + PLATE_AMPLITUDE * np.sin(2 * np.pi * t / period))
         cx = width / 2
         img = bg.copy()
         img[np.abs(yy - cy) <= height / 80] = 200  # the bar
@@ -36,3 +46,90 @@ def plate_frames(n: int, height: int, width: int, seed: int = 0,
         img[d <= 0.12 * r] = 220
         out[t] = img
     return out
+
+
+def pad_detections(frames: list[np.ndarray], d_cap: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-frame (n_i, 6) rows -> (T, d_cap, 6) float64 and the (T, d_cap) mask."""
+    dets = np.zeros((len(frames), d_cap, 6))
+    valid = np.zeros((len(frames), d_cap), bool)
+    for t, f in enumerate(frames):
+        n = min(len(f), d_cap)
+        dets[t, :n] = f[:n]
+        valid[t, :n] = True
+    return dets, valid
+
+
+def plate_detections(n_frames: int = 60, n_obj: int = 2, miss=(), jitter: float = 0.004,
+                     seed: int = 0, dropout: float = 0.0,
+                     d_cap: int = 8) -> tuple[np.ndarray, np.ndarray]:
+    """Rows [x1, y1, x2, y2, score, 0] of ``n_obj`` plates side by side, each
+    moving as ``0.3 + 0.3 sin``; no rows on the frames in ``miss``, each row
+    dropped with probability ``dropout``, Gaussian jitter on the boxes."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for f in range(n_frames):
+        rows = []
+        if f not in miss:
+            for k in range(n_obj):
+                if dropout and rng.uniform() < dropout:
+                    continue
+                x0 = 0.1 + 0.35 * k
+                y0 = 0.3 + 0.3 * np.sin(2 * np.pi * (f / n_frames + k * 0.3))
+                rows.append([x0, y0, x0 + 0.18, y0 + 0.15, 0.5 + 0.4 * rng.uniform(), 0])
+        rows = np.asarray(rows).reshape(-1, 6)
+        if jitter and len(rows):
+            rows[:, :4] += rng.normal(0, jitter, size=rows[:, :4].shape)
+        frames.append(rows)
+    return pad_detections(frames, d_cap)
+
+
+def crossing_detections(n_frames: int = 70, seed: int = 0,
+                        d_cap: int = 8) -> tuple[np.ndarray, np.ndarray]:
+    """Two plates crossing each other horizontally, their boxes overlapping
+    midway, listed in a random order each frame."""
+    rng = np.random.default_rng(seed)
+    frames = []
+    for f in range(n_frames):
+        a = 0.05 + 0.6 * f / n_frames
+        b = 0.65 - 0.6 * f / n_frames
+        rows = np.array([[a, 0.40, a + 0.2, 0.60, 0.9, 0], [b, 0.42, b + 0.2, 0.62, 0.8, 0]])
+        rows[:, :4] += rng.normal(0, 0.003, size=(2, 4))
+        frames.append(rows[rng.permutation(2)])
+    return pad_detections(frames, d_cap)
+
+
+def tracker_cases(d_cap: int = 8) -> dict:
+    """The tracker's test scenes: {name: (config kind, config kwargs, (dets,
+    valid), skip_empty_frames)}: SORT and OC-SORT, misses and dropout (OCR,
+    ORU), crossing plates, more births than slots, empty frames with the
+    skip on and off."""
+    ocsort = dict(max_age=30, asso="diou", iou_threshold=0.1, max_tracks=d_cap)
+    scene = lambda **kw: plate_detections(d_cap=d_cap, **kw)  # noqa: E731
+    return {
+        "sort_simple": ("sort", dict(max_age=30, iou_threshold=0.1, max_tracks=d_cap),
+                        scene(n_frames=50, n_obj=2, seed=1), False),
+        "sort_dropout": ("sort", dict(max_age=5, iou_threshold=0.2, max_tracks=d_cap),
+                         scene(n_frames=80, n_obj=3, seed=2, dropout=0.15), False),
+        "ocsort_simple": ("ocsort", ocsort, scene(n_frames=50, n_obj=2, seed=3), False),
+        "ocsort_gap_ocr_oru": ("ocsort", ocsort,
+                               scene(n_frames=60, n_obj=1, miss=set(range(20, 28)), seed=4),
+                               False),
+        "ocsort_gap_skip_empty": ("ocsort", ocsort,
+                                  scene(n_frames=60, n_obj=1, miss=set(range(20, 28)), seed=4),
+                                  True),
+        "ocsort_noisy_dropout": ("ocsort", dict(ocsort, max_age=10),
+                                 scene(n_frames=100, n_obj=3, seed=5, dropout=0.1,
+                                       jitter=0.006), True),
+        "ocsort_crossing": ("ocsort", ocsort, crossing_detections(70, seed=6, d_cap=d_cap),
+                            True),
+        "ocsort_births_beyond_slots": ("ocsort", dict(ocsort, max_age=10, max_tracks=4),
+                                       scene(n_frames=60, n_obj=6, seed=7, dropout=0.2,
+                                             jitter=0.01), True),
+    }
+
+
+def ragged_clips(d_cap: int = 8) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Four clips of 50, 72, 31 and 64 frames, with dropout and misses."""
+    return [plate_detections(n, k, seed=s, dropout=0.1, miss={12, 13} if s % 2 else (),
+                             d_cap=d_cap)
+            for n, k, s in [(50, 2, 10), (72, 1, 11), (31, 3, 12), (64, 2, 13)]]

@@ -1,9 +1,12 @@
 """Video decode/encode and annotation drawing (OpenCV host path).
 
-Copy of ``vbt_tpu.io.video``; cv2 is imported inside each function.
+Port of ``vbt_tpu.io.video``; cv2 is imported inside each function.
 
 The reader yields fixed-size uint8 RGB frame batches so the device pipeline
-sees static shapes; the tail batch is padded and masked. Drawing reproduces
+sees static shapes; the tail batch is padded and masked. It decodes each
+batch straight into a buffer: one the caller lends (``lend``, such as
+``DetectionPipeline.lend_frames``, which hands out pinned staging buffers)
+or a new array, never a copy of a reused one. Drawing reproduces
 the reference's annotated-video output (track.py:28-62: bounding box +
 "{score}%, tracking_id: N" label, polyline bar path capped at the last 120
 points with a filled endpoint circle).
@@ -12,7 +15,7 @@ points with a filled endpoint circle).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Callable, Iterator
 
 import numpy as np
 
@@ -29,7 +32,8 @@ class VideoMeta:
 class VideoReader:
     """Batched RGB frame reader over OpenCV's C++ decoder."""
 
-    def __init__(self, path: str, batch_size: int = 32):
+    def __init__(self, path: str, batch_size: int = 32,
+                 lend: Callable[[tuple[int, ...]], np.ndarray] | None = None):
         import cv2
 
         self._cap = cv2.VideoCapture(path)
@@ -41,31 +45,37 @@ class VideoReader:
             height=int(self._cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
         )
         self.batch_size = batch_size
+        self._lend = lend
 
     def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray, int]]:
-        """Yields (frames (B,H,W,3) uint8 RGB, valid (B,) bool, start_index)."""
+        """Yields (frames (B,H,W,3) uint8 RGB, valid (B,) bool, start_index).
+        A lent buffer belongs to the caller from the yield on; the reader
+        asks for the next one when it decodes the next frame. Slots past
+        the last frame of the tail batch hold stale pixels (masked)."""
         import cv2
 
         b = self.batch_size
-        h, w = self.meta.height, self.meta.width
+        shape = (b, self.meta.height, self.meta.width, 3)
         start = 0
-        buf = np.zeros((b, h, w, 3), np.uint8)
+        buf = None
         count = 0
         while True:
             ok, frame = self._cap.read()
             if not ok:
                 break
-            buf[count] = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+            if buf is None:
+                buf = self._lend(shape) if self._lend else np.zeros(shape, np.uint8)
+            cv2.cvtColor(frame, cv2.COLOR_BGR2RGB, dst=buf[count])
             count += 1
             if count == b:
-                valid = np.ones(b, bool)
-                yield buf.copy(), valid, start
+                yield buf, np.ones(b, bool), start
                 start += b
                 count = 0
+                buf = None
         if count:
             valid = np.zeros(b, bool)
             valid[:count] = True
-            yield buf.copy(), valid, start
+            yield buf, valid, start
         self._cap.release()
 
 

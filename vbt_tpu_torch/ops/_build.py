@@ -27,7 +27,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vbt_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 # csrc/<name>.cu -> build/vbt_tpu_torch/lib<name>.so
-SOURCES = ("nms", "fused_mbconv", "fused_mbconv_mma")
+SOURCES = ("nms", "fused_mbconv", "fused_mbconv_mma", "track_scan")
+# Flags of one source after the standard ones. The tracker rounds each
+# multiply and add apart, as the plain version's CPU kernels do.
+SOURCE_FLAGS = {"track_scan": ["--fmad=false"]}
 PTXAS_VERBOSE = ["-Xptxas", "-v"]  # registers, spills and shared memory of every kernel
 
 build_log: dict[str, str] = {}  # nvcc's output of the last build of each source
@@ -68,7 +71,7 @@ def _start(name: str, extra_flags: tuple[str, ...]) -> tuple[subprocess.Popen, P
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra_flags, "-o", tmp, str(src)]
+    cmd = [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), *extra_flags, "-o", tmp, str(src)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, Path(tmp), lib
 

@@ -6,6 +6,13 @@ runs preprocess, the EfficientDet forward and the postprocess on the
 pipeline's device. The weights are moved to the device once, at
 construction.
 
+Uploads go through a ring of pinned staging buffers per batch shape
+(:class:`~vbt_tpu_torch.runtime.upload.StagingRing`): the copy runs on a
+copy stream and the forward waits for it on the device, not the host. The
+video reader decodes straight into a buffer the pipeline lends it
+(:meth:`DetectionPipeline.lend_frames`); any other numpy batch is copied
+into a staging buffer first.
+
 Serving policy (:func:`serving_config`): on CUDA, bf16 with the NMS kernel
 (``use_kernel``, always for a single-class model); on the CPU, f32 with
 the plain class-aware postprocess, as the JAX package served f32 with its
@@ -30,6 +37,7 @@ from vbt_tpu_torch.ops.nms_cuda import detection_postprocess_cuda
 from vbt_tpu_torch.ops.postprocess import Detections, detection_postprocess
 from vbt_tpu_torch.ops.preprocess import preprocess_frames
 from vbt_tpu_torch.runtime.checkpoint import load_checkpoint, load_into
+from vbt_tpu_torch.runtime.upload import StagingRing
 from vbt_tpu_torch.utils.device import resolve_device, serving_dtype
 
 MAX_DETECTIONS = 25  # the TFLite postprocess contract
@@ -78,6 +86,7 @@ class DetectionPipeline:
                       if backbone == "turbo" else None)
         self.model = model.eval().to(device=self.device, dtype=self.dtype)
         self.anchors = torch.from_numpy(generate_anchors(spec.anchor_config)).to(self.device)
+        self.rings: dict[tuple[int, ...], StagingRing] = {}
 
     @classmethod
     def from_model_arg(cls, model: str, device: str | torch.device = "cuda",
@@ -90,12 +99,32 @@ class DetectionPipeline:
                 f".msgpack checkpoint at that path or a sibling of it.")
         return cls(spec, load_checkpoint(ckpt), device=device, dtype=dtype, backbone=backbone)
 
-    # -- inference ------------------------------------------------------------
+    # -- upload -----------------------------------------------------------------
+    def staging(self, shape: tuple[int, ...]) -> StagingRing:
+        """The staging ring of one batch shape, made at first use."""
+        shape = tuple(shape)
+        if shape not in self.rings:
+            self.rings[shape] = StagingRing(shape, self.device)
+        return self.rings[shape]
+
+    def lend_frames(self, shape: tuple[int, ...]) -> np.ndarray:
+        """A staging buffer of ``shape`` for the caller to fill with a uint8
+        (B, H, W, 3) batch and pass to :meth:`detect_batch` before it asks
+        for more buffers than the ring holds."""
+        return self.staging(shape).lend()
+
     def _frames(self, frames) -> torch.Tensor:
-        x = torch.from_numpy(frames) if isinstance(frames, np.ndarray) else frames
-        if x.dtype != torch.uint8 or x.dim() != 4 or x.shape[-1] != 3:
+        if isinstance(frames, torch.Tensor) and frames.device.type != "cpu":
+            x = frames
+        else:
+            x = frames.numpy() if isinstance(frames, torch.Tensor) else np.asarray(frames)
+        if x.dtype not in (torch.uint8, np.uint8) or x.ndim != 4 or x.shape[-1] != 3:
             raise ValueError(f"want uint8 (B, H, W, 3) frames, got {x.dtype} {tuple(x.shape)}")
-        return x.to(self.device, non_blocking=True)
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return self.staging(x.shape).upload(x)
+
+    # -- inference ------------------------------------------------------------
 
     @torch.inference_mode()
     def forward(self, frames) -> tuple[torch.Tensor, torch.Tensor]:

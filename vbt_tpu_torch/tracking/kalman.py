@@ -6,13 +6,19 @@ reference reads at track.py:197-199: ``trk.kf.x.flatten()[4:6]`` are the
 center velocities).
 
 Copy of ``vbt_tpu.tracking.kalman``. Written against a pluggable array
-namespace (``xp``): the host trackers call it with numpy on single states,
-and the expressions broadcast over leading axes for a batched tracker.
+namespace (``xp``): the host trackers call it with numpy on single states.
+The ``*_torch`` counterparts below serve the batched scan tracker
+(:mod:`vbt_tpu_torch.tracking.scan`): the same expressions on torch tensors,
+broadcast over leading (clips, slots) axes, in the tensors' dtype and on
+their device. :func:`kf_update_torch` inverts with ``torch.linalg.inv_ex``,
+which reports a singular matrix in its ``info`` output instead of checking
+it with a device-to-host sync (masked slots carry NaN boxes through it).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 DIM_X = 7
 DIM_Z = 4
@@ -104,3 +110,58 @@ def kf_update(x, p, z, xp=np):
 def state_bbox(x, xp=np):
     """Current state as [x1,y1,x2,y2]."""
     return z_to_bbox(x[..., :DIM_Z], xp)
+
+
+# -- torch counterparts (batched scan tracker) ---------------------------------
+
+
+def _torch_constants(like: torch.Tensor):
+    return tuple(torch.as_tensor(a, dtype=like.dtype, device=like.device)
+                 for a in (_F, _H, _R, _Q))
+
+
+def initial_covariance_torch(dtype: torch.dtype, device) -> torch.Tensor:
+    return torch.diag(torch.tensor([10.0, 10.0, 10.0, 10.0, 1e4, 1e4, 1e4],
+                                   dtype=dtype, device=device))
+
+
+def bbox_to_z_torch(bbox: torch.Tensor) -> torch.Tensor:
+    w = bbox[..., 2] - bbox[..., 0]
+    h = bbox[..., 3] - bbox[..., 1]
+    return torch.stack([bbox[..., 0] + w / 2.0, bbox[..., 1] + h / 2.0, w * h, w / h], dim=-1)
+
+
+def z_to_bbox_torch(z: torch.Tensor) -> torch.Tensor:
+    w = torch.sqrt(torch.clamp(z[..., 2] * z[..., 3], min=0.0))
+    h = torch.where(w > 0, z[..., 2] / torch.where(w > 0, w, 1.0), 0.0)
+    return torch.stack([z[..., 0] - w / 2.0, z[..., 1] - h / 2.0,
+                        z[..., 0] + w / 2.0, z[..., 1] + h / 2.0], dim=-1)
+
+
+def state_bbox_torch(x: torch.Tensor) -> torch.Tensor:
+    return z_to_bbox_torch(x[..., :DIM_Z])
+
+
+def kf_predict_torch(x: torch.Tensor, p: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`kf_predict` on (..., 7) / (..., 7, 7) tensors."""
+    f, _, _, q = _torch_constants(x)
+    ds = torch.where(x[..., 6] + x[..., 2] <= 0, 0.0, x[..., 6])
+    x = torch.cat([x[..., :6], ds[..., None]], dim=-1)
+    x_new = torch.einsum("ij,...j->...i", f, x)
+    p_new = torch.einsum("ij,...jk,lk->...il", f, p, f) + q
+    return x_new, p_new
+
+
+def kf_update_torch(x: torch.Tensor, p: torch.Tensor,
+                    z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`kf_update` on (..., 7) / (..., 7, 7) tensors and z (..., 4)."""
+    _, h, r, _ = _torch_constants(x)
+    y = z - torch.einsum("ij,...j->...i", h, x)
+    s = torch.einsum("ij,...jk,lk->...il", h, p, h) + r
+    s_inv = torch.linalg.inv_ex(s).inverse
+    k = torch.einsum("...ij,kj,...kl->...il", p, h, s_inv)
+    x_new = x + torch.einsum("...ij,...j->...i", k, y)
+    kh = torch.einsum("...ij,jk->...ik", k, h)
+    identity = torch.eye(DIM_X, dtype=x.dtype, device=x.device)
+    p_new = torch.einsum("...ij,...jk->...ik", identity - kh, p)
+    return x_new, p_new
