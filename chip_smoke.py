@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's track path on one CUDA card, check it, time it.
+"""Drive the PyTorch/CUDA port's track and stream paths on one CUDA card, check them, time them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 card and ``nvcc``; without a card it exits with code 2 and prints no result.
@@ -58,7 +58,28 @@ Phases, each of which raises on failure:
    through the pinned ring (the host's fill of the staging buffer, the copy
    on the copy stream, then the compute stream), a pageable ``.to()`` of the
    same batch for comparison, and the device's busy share and time by
-   kernel from ``torch.profiler``.
+   kernel from ``torch.profiler``;
+8. the tracker carried across chunks: K3 run chunk by chunk with its state
+   in and out (chunks of 7 and 64 frames and an uneven split) equals one
+   launch bit for bit, outputs and final state, on the tracker's test
+   scenes and on the main path's detections (D = 25, S = 16); the final
+   state equals the plain version's (integer fields exact, positions
+   within ``K3_BOX_ATOL``, Kalman velocities within ``K3_DXDY_ATOL`` and
+   covariances within it relative to 1 + |want|); the time-shard relay over
+   ``[cuda:0] * 4`` equals one launch bit for bit;
+9. the analysis scan K4 against its plain version (CPU copies, float64) on
+   the main path's followed track and a fuzz series, in chunks of 7 and 64:
+   events and both carries within ``K4_RTOL`` relative (the largest
+   difference is printed);
+10. the stream: ``StreamingPipeline`` over the 256 frames in chunks of 64,
+   bf16 lite0, through K1, K3 (state carried) and K4, with every count at 0
+   before and read after (4 launches each); its live lines; its final phases
+   equal the offline lane's (the K3 dataframe through the host analysis)
+   with types exact, times within 1e-9 and ROM within 1e-9 relative; its
+   frames/s and the host-clock spans of a chunk (detect, K3, the followed
+   id's selection, K4, phases), then K3's time a 64-frame chunk with the
+   state in and out and K4's time a 64-sample chunk (CUDA-graph replay)
+   against its plain version on the card and its bound.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -95,6 +116,11 @@ K2_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # initial velocity covariance amplifies early in a track; ids, report and
 # conf are exact, reported observations are copies.
 K3_BOX_ATOL, K3_DXDY_ATOL = 1e-6, 1e-4
+# K4 against its plain version, float64: both do the same operations in the
+# same order (--fmad=false), so they should agree bit for bit; 1e-12
+# relative leaves room for a math library's last bit and no more.
+K4_RTOL = 1e-12
+STREAM_CHUNK = 64  # frames a streamed chunk (the stream CLI's default)
 # K3 (float32) against the host OC-SORT (numpy float64) on the main path:
 # positions and plate sizes are float32 copies of the detections; dx/dy
 # carry the float32 Kalman transient the JAX CLI documents as ~1e-2
@@ -109,6 +135,7 @@ TIE_PAIRS = ((37, 38), (37, 53), (37, 69), (255, 256))  # i+1, i+16, i+32, acros
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12  # FP64 outside the tensor cores (NVIDIA data sheet, H100 SXM)
 BF16_TENSOR_OPS_PER_S = 989e12
 
 
@@ -427,6 +454,226 @@ def _hold_k3_scenes() -> float:
     return err
 
 
+def _splits(t: int) -> dict[str, list[int]]:
+    """Chunk lengths that cover t frames: 7 a chunk, 64 a chunk, uneven."""
+    def equal(n):
+        return [n] * (t // n) + ([t % n] if t % n else [])
+
+    third = max(1, t // 3)
+    uneven = [third + 5, 1, third - 4] if t > 2 * third + 2 else [t]
+    return {"7": equal(7), "64": equal(64), "uneven": uneven + ([t - sum(uneven)]
+                                                              if t > sum(uneven) else [])}
+
+
+def _assert_k3_state(label, got, want, exact: bool) -> float:
+    """TrackerState ``got`` (on the card) against ``want`` (CPU): integer and
+    bool fields exact; float fields bit for bit (``exact``) or positions
+    within K3_BOX_ATOL, Kalman velocities within K3_DXDY_ATOL and
+    covariances within it relative to 1 + |want|. Returns the largest
+    difference of positions and velocities."""
+    import torch
+
+    worst = 0.0
+    for name, g, w in zip(want._fields, got, want):
+        g, w = g.cpu(), w.cpu()
+        if exact or not w.dtype.is_floating_point:
+            if not torch.equal(g, w):
+                raise AssertionError(f"{label}: state.{name} differs")
+            continue
+        d = (g - w).abs()
+        if name in ("p", "frozen_p"):
+            ok = bool((d <= K3_DXDY_ATOL * (1 + w.abs())).all())
+        elif name in ("x", "frozen_x"):
+            ok = d[..., :4].max().item() <= K3_BOX_ATOL and d[..., 4:].max().item() <= K3_DXDY_ATOL
+            worst = max(worst, d.max().item())
+        else:
+            ok = d.max().item() <= K3_BOX_ATOL
+            worst = max(worst, d.max().item())
+        if not ok:
+            raise AssertionError(f"{label}: state.{name} differs from the plain version's by "
+                                 f"{d.max().item():.3g}")
+    return worst
+
+
+def _hold_k3_chunks(label, cfg, dets, valid, skip=True) -> float:
+    """K3 chunk by chunk with the state carried against one launch, bit for
+    bit (outputs and final state), for each split of :func:`_splits`; the
+    final state against the plain version's (CPU copies). ``dets`` (T, D, 6)."""
+    import torch
+    from vbt_tpu_torch.ops.track_scan_cuda import track_scan
+    from vbt_tpu_torch.tracking.scan import init_state, scan_clips_plain
+
+    d = torch.from_numpy(np.ascontiguousarray(dets, np.float32))[None]
+    v = torch.from_numpy(np.ascontiguousarray(valid))[None]
+    f = torch.ones(d.shape[:2], dtype=torch.bool)
+    t = d.shape[1]
+    whole_state, whole = track_scan(cfg, d.cuda(), v.cuda(), f.cuda(), skip, return_state=True)
+    for name, sizes in _splits(t).items():
+        state, parts, a = init_state(cfg, 1, torch.float32, "cuda"), [], 0
+        for n in sizes:
+            chunk = [x[:, a:a + n].contiguous().cuda() for x in (d, v, f)]
+            state, out = track_scan(cfg, *chunk, skip, state=state, return_state=True)
+            parts.append(out)
+            a += n
+        for i, field in enumerate(whole):
+            if not torch.equal(torch.cat([p[i] for p in parts], dim=1), field):
+                raise AssertionError(f"track_scan {label}: chunks of {name} differ from one "
+                                     f"launch in output {i}")
+        _assert_k3_state(f"track_scan {label}, chunks of {name}", state, whole_state, exact=True)
+    torch.cuda.synchronize()
+    plain_state, _ = scan_clips_plain(cfg, d, v, f, skip, return_state=True)
+    err = _assert_k3_state(f"track_scan {label}", whole_state, plain_state, exact=False)
+    print(f"track_scan in chunks [{label}]: T={t} D={d.shape[2]} S={cfg.max_tracks}: chunks of "
+          f"7, 64 and {_splits(t)['uneven']} with the state carried equal one launch bit for "
+          f"bit, final state included; final state vs plain: integer fields equal, max |d| "
+          f"positions and velocities {err:.3g}")
+    return err
+
+
+def _hold_k3_chunk_scenes() -> float:
+    from vbt_tpu_torch.io.synthetic import tracker_cases
+
+    return max(_hold_k3_chunks(name, _k3_cfg(kind, **kw), dets, valid, skip)
+               for name, (kind, kw, (dets, valid), skip) in tracker_cases().items())
+
+
+def _hold_relay(cfg, dets, valid) -> int:
+    """The time-shard relay over [cuda:0] * 4 against one launch, bit for
+    bit. Returns the relay's K3 launches."""
+    import torch
+    from vbt_tpu_torch.ops.track_scan_cuda import track_scan
+    from vbt_tpu_torch.parallel.time_shard import track_video_time_sharded
+    from vbt_tpu_torch.tracking.scan import track_video
+
+    d = torch.from_numpy(np.ascontiguousarray(dets, np.float32))
+    v = torch.from_numpy(np.ascontiguousarray(valid))
+    for t in (d.shape[0], d.shape[0] - 3):  # 4 equal chunks, then padded ones
+        whole = track_video(cfg, d[:t].cuda(), v[:t].cuda())
+        before = track_scan.launches
+        relay = track_video_time_sharded(cfg, d[:t], v[:t], [torch.device("cuda", 0)] * 4)
+        launches = track_scan.launches - before
+        if not all(torch.equal(a, b.cpu()) for a, b in zip(relay, whole)):
+            raise AssertionError(f"time-shard relay over 4 chunks differs from one launch (T={t})")
+    print(f"time shard: the relay over [cuda:0] * 4 ({launches} K3 launches, T = {d.shape[0]} "
+          f"and {d.shape[0] - 3}) equals one launch bit for bit")
+    return launches
+
+
+def _follow_series(data, follow_id: int = 1) -> list[np.ndarray]:
+    """The followed id's raw samples as the stream feeds K4: time, x, y, dy,
+    norm_plate_height, norm_plate_width."""
+    ids = np.asarray(data["id"])
+    return [np.asarray(data[c], np.float64)[ids == follow_id]
+            for c in ("time", "x", "y", "dy", "norm_plate_height", "norm_plate_width")]
+
+
+def _fuzz_series(n: int, seed: int = 7) -> list[np.ndarray]:
+    """A noisy sinusoidal bar path (the fuzz of tests/test_velocity_jax.py)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / FPS
+    y = 0.5 + 0.2 * np.sin(2 * np.pi * 0.4 * t) + rng.normal(0, 0.002, n)
+    x = 0.4 + rng.normal(0, 0.005, n)
+    return [t, x, y, np.gradient(y), np.full(n, 0.16) + rng.normal(0, 0.01, n),
+            np.full(n, 0.28) + rng.normal(0, 0.01, n)]
+
+
+def _rel_diff(got, want) -> float:
+    """The largest |got - want| / |want| over entries that differ (0 where
+    equal, infinities included); integer fields must be equal."""
+    import torch
+
+    got = got.cpu()
+    if not want.dtype.is_floating_point:
+        return 0.0 if torch.equal(got, want) else float("inf")
+    differ = got != want
+    if not differ.any():
+        return 0.0
+    return ((got - want).abs() / want.abs())[differ].max().item()
+
+
+def _hold_k4(label, cols, chunk) -> float:
+    """K4 on the card chunk by chunk against its plain version on CPU copies,
+    both carries carried: every event and both carries within K4_RTOL
+    relative. Returns the largest absolute difference."""
+    import torch
+    from vbt_tpu_torch.analysis.smoother_scan import initial_smoother
+    from vbt_tpu_torch.analysis.velocity_torch import initial_carry
+    from vbt_tpu_torch.ops.analysis_scan_cuda import analysis_chunk_plain, analysis_scan
+
+    cols = [torch.from_numpy(np.ascontiguousarray(c, np.float64)) for c in cols]
+    pd_cpu = torch.tensor(PLATE_DIAMETER, dtype=torch.float64)
+    got = (initial_smoother(device="cuda"), initial_carry(device="cuda"))
+    want = (initial_smoother(), initial_carry())
+    rel = err = 0.0
+    fired = 0
+    for i in range(0, cols[0].shape[0], chunk):
+        part = [c[i:i + chunk].contiguous() for c in cols]
+        *got, got_ev = analysis_scan(pd_cpu.cuda(), *got, [c.cuda() for c in part])
+        *want, want_ev = analysis_chunk_plain(pd_cpu, *want, part)
+        pairs = list(zip(got_ev, want_ev)) + [p for g, w in zip(got, want) for p in zip(g, w)]
+        for g, w in pairs:
+            rel = max(rel, _rel_diff(g, w))
+            if w.dtype.is_floating_point:
+                finite = torch.isfinite(w)
+                if finite.any():
+                    err = max(err, (g.cpu() - w)[finite].abs().max().item())
+        fired += int(want_ev.fired.sum())
+    print(f"analysis_scan vs plain [{label}, chunks of {chunk}]: {cols[0].shape[0]} samples, "
+          f"{fired} phase ends; events and carries: max relative difference {rel:.3g}, max "
+          f"|d| {err:.3g}")
+    if rel > K4_RTOL:
+        raise AssertionError(f"analysis_scan {label}: differs from the plain version by {rel} "
+                             f"relative")
+    return err
+
+
+def _stream_path(pipe, frames, kernels, offline) -> dict:
+    """Phase 10: the stream over ``frames`` in chunks, every count at 0
+    before and read after; its final phases against the offline lane's."""
+    import torch
+    from vbt_tpu_torch.cli.stream import LiveReps
+    from vbt_tpu_torch.runtime.streaming import StreamingPipeline
+
+    warm = StreamingPipeline(pipe, fps=FPS)  # first launches of this chunk shape
+    warm.process_frames(frames[:STREAM_CHUNK])
+    warm.phases()
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    stream = StreamingPipeline(pipe, fps=FPS, plate_diameter=PLATE_DIAMETER)
+    live = LiveReps(sys.stdout)
+    print(f"stream [xla]: {len(frames)} frames in chunks of {STREAM_CHUNK}, live lines:")
+    t0 = time.perf_counter()
+    for i in range(0, len(frames), STREAM_CHUNK):
+        stream.process_frames(frames[i:i + STREAM_CHUNK])
+        live.update(stream.phases(include_open=False))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    phases = stream.phases()
+    live.summary(phases)
+    n_chunks = -(-len(frames) // STREAM_CHUNK)
+    want = {"nms": n_chunks, "fused_mbconv": 0, "track_scan": n_chunks,
+            "analysis_scan": n_chunks}
+    print(f"stream [xla]: launches {launches}")
+    if launches != want:
+        raise AssertionError(f"stream: launches {launches}, want {want}")
+    same = len(phases) == len(offline) and all(
+        a.type == b.type and abs(a.time_start - b.time_start) <= 1e-9
+        and abs(a.time_end - b.time_end) <= 1e-9 and abs(a.rom - b.rom) <= 1e-9 * abs(b.rom)
+        for a, b in zip(phases, offline))
+    if not same:
+        raise AssertionError(f"stream: phases {phases} differ from the offline lane's {offline}")
+    rom_rel = max(abs(a.rom - b.rom) / abs(b.rom) for a, b in zip(phases, offline))
+    spans = {name: stream.timer.totals[name] / stream.timer.counts[name] * 1e3
+             for name in ("detect", "track", "select", "analysis", "phases")}
+    print(f"stream [xla]: {len(phases)} phases equal the offline lane's (types and times exact "
+          f"to 1e-9, max relative ROM difference {rom_rel:.3g}); {len(frames) / wall:.1f} "
+          f"frames/s ({wall:.3f} s); per chunk, host clock, ms: "
+          + ", ".join(f"{n} {v:.3f}" for n, v in spans.items()))
+    return {"fps": len(frames) / wall, "launches": launches, "spans_ms": spans}
+
+
 def _compare_track_data(lane, scan, host) -> float:
     """The scan tracker's and the host OC-SORT's columnar capture dicts: the
     same ids, times and row order; positions and plate sizes within
@@ -553,7 +800,7 @@ def _main_path(lane, pipe, frames, kernels, want_launches) -> dict:
     t_host = time.perf_counter() - t1
     data = tracks_to_data(tracks, fps=FPS)
     dxdy_err = _compare_track_data(lane, data, tracks_to_data(host_tracks, fps=FPS))
-    _analyse(lane, data)
+    phases = _analyse(lane, data)[0]
     launches = {name: fn.launches for name, fn in kernels.items()}
     print(f"main path [{lane}]: launches {launches}")
     if launches != want_launches:
@@ -573,7 +820,7 @@ def _main_path(lane, pipe, frames, kernels, want_launches) -> dict:
           f"({frames.shape[0] / t_detect:.1f} frames/s), scan tracker (K3) {t_scan:.4f} s, "
           f"host OC-SORT {t_host:.3f} s")
     return {"fps": frames.shape[0] / t_detect, "launches": launches, "rows": rows,
-            "valid": valid, "dxdy_vs_host": dxdy_err}
+            "valid": valid, "dxdy_vs_host": dxdy_err, "phases": phases, "data": data}
 
 
 def _stage_spans(pipe, frames) -> dict:
@@ -692,6 +939,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     from vbt_tpu_torch.io.synthetic import plate_frames
     from vbt_tpu_torch.ops import _build
+    from vbt_tpu_torch.ops.analysis_scan_cuda import analysis_scan
     from vbt_tpu_torch.ops.fused_mbconv import fused_mbconv
     from vbt_tpu_torch.ops.nms_cuda import nms
     from vbt_tpu_torch.ops.track_scan_cuda import track_scan
@@ -740,15 +988,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     frames = plate_frames(BATCH * BATCHES, HEIGHT, WIDTH, seed=0, period=PERIOD)
     print(f"made {frames.shape[0]} frames {HEIGHT}x{WIDTH} in {time.perf_counter() - t0:.2f} s")
-    kernels = {"nms": nms, "fused_mbconv": fused_mbconv, "track_scan": track_scan}
+    kernels = {"nms": nms, "fused_mbconv": fused_mbconv, "track_scan": track_scan,
+               "analysis_scan": analysis_scan}
     pipe = DetectionPipeline.from_model_arg(CKPT, device="cuda")
     small = frames[:BATCH]
     xla = _main_path("xla", pipe, frames, kernels,
-                     {"nms": BATCHES, "fused_mbconv": 0, "track_scan": 1})
+                     {"nms": BATCHES, "fused_mbconv": 0, "track_scan": 1, "analysis_scan": 0})
     turbo = DetectionPipeline.from_model_arg(CKPT, device="cuda", backbone="turbo")
     n_fused = len(turbo.turbo.fused_names)
     turbo_run = _main_path("turbo", turbo, frames, kernels,
-                           {"nms": BATCHES, "fused_mbconv": n_fused * BATCHES, "track_scan": 1})
+                           {"nms": BATCHES, "fused_mbconv": n_fused * BATCHES, "track_scan": 1,
+                            "analysis_scan": 0})
     print(f"detect throughput, bf16, B = {BATCH}: xla {xla['fps']:.1f} frames/s, turbo "
           f"{turbo_run['fps']:.1f} frames/s ({n_fused} fused blocks: {turbo.turbo.fused_names})")
     # 3 (continued). K3 against its plain version on the main path's detections.
@@ -760,9 +1010,24 @@ def main(argv=None) -> int:
 
     records = _time_kernels(pipe, small, dev, nms_err, k2_err, k2_timing_inputs,
                             xla["launches"], turbo_run["launches"])
-    records.append(_time_k3(cfg, xla, k3_err))
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
     _where_the_time_goes(pipe, turbo, frames)
+
+    # 8. The tracker carried across chunks, and the relay on one card.
+    k3_chunk_err = _hold_k3_chunk_scenes()
+    k3_chunk_err = max(k3_chunk_err, _hold_k3_chunks("main path detections, xla", cfg,
+                                                     xla["rows"], xla["valid"]))
+    relay_launches = _hold_relay(cfg, xla["rows"], xla["valid"])
+    # 9. K4 against its plain version.
+    series = _follow_series(xla["data"])
+    k4_err = max(_hold_k4(label, cols, chunk)
+                 for label, cols in (("main path followed track", series),
+                                     ("fuzz series", _fuzz_series(300)))
+                 for chunk in (7, STREAM_CHUNK))
+    # 10. The stream.
+    stream = _stream_path(pipe, frames, kernels, xla["phases"])
+    records.append(_time_k3(cfg, xla, max(k3_err, k3_chunk_err), stream, relay_launches))
+    records.append(_time_k4(series, k4_err, stream))
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -950,16 +1215,17 @@ def _k3_work(dets, valid, report, s) -> tuple[int, int]:
     return n_bytes, n_ops
 
 
-def _time_k3(cfg, xla, k3_err) -> dict:
+def _time_k3(cfg, xla, k3_err, stream, relay_launches) -> dict:
     """Phase 6, K3: CUDA events on the main path's detections (C = 1,
-    T = 256) and on synthetic 60 s clips (C = 1 and 16, T = 1800), the host
+    T = 256), on its first 64 frames with the state in and out (a streamed
+    chunk) and on synthetic 60 s clips (C = 1 and 16, T = 1800), the host
     OC-SORT on the same 256 frames, the plain version on the card over the
     first 16 of them."""
     import torch
     from vbt_tpu_torch.cli.track import run_host_tracker
     from vbt_tpu_torch.io.synthetic import plate_detections
     from vbt_tpu_torch.ops.track_scan_cuda import track_scan
-    from vbt_tpu_torch.tracking.scan import scan_clips_plain
+    from vbt_tpu_torch.tracking.scan import init_state, scan_clips_plain
 
     def inputs(rows, valid):
         dets = torch.from_numpy(np.ascontiguousarray(rows, np.float32)).cuda()
@@ -970,6 +1236,10 @@ def _time_k3(cfg, xla, k3_err) -> dict:
     t = main[0].shape[1]
     ms = _cuda_ms(lambda: track_scan(cfg, *main), reps=10)
     report = track_scan(cfg, *main)[0]
+    chunk = tuple(a[:, :STREAM_CHUNK].contiguous() for a in main)
+    state0 = init_state(cfg, 1, torch.float32, "cuda")
+    chunk_ms = _cuda_ms(lambda: track_scan(cfg, *chunk, state=state0, return_state=True),
+                        reps=10)
     long_clips = [plate_detections(1800, 1, seed=100 + i, dropout=0.02, d_cap=D)
                   for i in range(16)]
     clips16 = inputs(np.stack([c[0] for c in long_clips]), np.stack([c[1] for c in long_clips]))
@@ -998,6 +1268,9 @@ def _time_k3(cfg, xla, k3_err) -> dict:
                  "plain_ms: the plain version on the card over the first 16 of those frames, "
                  "host clock",
         "ms_per_frame": ms / t,
+        "chunk64_state_ms": chunk_ms,
+        "stream_launches": stream["launches"]["track_scan"],
+        "relay_launches": relay_launches,
         "plain_ms_per_frame": plain_s * 1e3 / 16,
         "host_ocsort_ms": host_s * 1e3,
         "t1800_c1_ms": ms_1800,
@@ -1005,11 +1278,69 @@ def _time_k3(cfg, xla, k3_err) -> dict:
         "replaces_also": "vbt_tpu/runtime/batch_runner.py:24 (track_clips); no Pallas kernel",
     }
     print(f"track_scan: {ms:.4f} ms for {t} frames ({ms / t * 1e3:.2f} us a frame), C = 1; "
+          f"a {STREAM_CHUNK}-frame chunk with the state in and out {chunk_ms:.4f} ms; "
           f"T = 1800: C = 1 {ms_1800:.3f} ms, C = 16 {ms_1800_c16:.3f} ms; host OC-SORT "
           f"{host_s * 1e3:.2f} ms for the same {t} frames; plain version on the card "
           f"{plain_s * 1e3 / 16:.2f} ms a frame (16 frames); bound "
           f"{record['bound_ms'] * 1e3:.3f} us ({record['bound_by']}: {n_bytes / 1e6:.3f} MB, "
           f"{n_ops / 1e6:.2f} M operations)")
+    return record
+
+
+def _k4_work(n: int) -> tuple[int, int]:
+    """(bytes, float64 operations) of K4 over n samples: six float64 inputs
+    read a sample, nine event fields written (one byte, four, seven times
+    eight), both carries read and written once; about 70 operations a
+    sample (the ring sums, three means, two running-average pushes, two
+    path-length increments, the comparisons of the state machine)."""
+    carries = (10 + 2 + 30 + 2 + 1) * 8 + 5 * 4 + 1 + (12 * 8 + 3 * 4 + 1)
+    return n * (6 * 8 + 1 + 4 + 7 * 8) + 2 * carries, n * 70
+
+
+def _time_k4(series, k4_err, stream) -> dict:
+    """K4 on one 64-sample chunk of the followed track from the fresh
+    carries: the card's own time (replay of a CUDA graph of 50 launches),
+    eager launches (the host's share included), and the plain version on the
+    card (host clock, one chunk)."""
+    import torch
+    from vbt_tpu_torch.analysis.smoother_scan import initial_smoother
+    from vbt_tpu_torch.analysis.velocity_torch import initial_carry
+    from vbt_tpu_torch.ops.analysis_scan_cuda import analysis_chunk_plain, analysis_scan
+
+    cols = [torch.from_numpy(np.ascontiguousarray(c[:STREAM_CHUNK])).cuda() for c in series]
+    pd_ = torch.tensor(PLATE_DIAMETER, dtype=torch.float64, device="cuda")
+    sm, vc = initial_smoother(device="cuda"), initial_carry(device="cuda")
+    n = cols[0].shape[0]
+    ms = _graph_ms(lambda: analysis_scan(pd_, sm, vc, cols), reps=50)
+    eager_ms = _cuda_ms(lambda: analysis_scan(pd_, sm, vc, cols), reps=50)
+    plain_s = min(_host_s(lambda: (analysis_chunk_plain(pd_, sm, vc, cols),
+                                   torch.cuda.synchronize())) for _ in range(2))
+    n_bytes, n_ops = _k4_work(n)
+    byte_ms, op_ms = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F64_OPS_PER_S * 1e3
+    record = {
+        "name": "analysis_scan",
+        "route": "cuda",
+        "source": "vbt_tpu_torch/csrc/analysis_scan.cu",
+        "replaces": "vbt_tpu/runtime/streaming.py:68",
+        "launches": stream["launches"]["analysis_scan"],
+        "max_abs_err": k4_err,
+        "ms": ms,
+        "plain_ms": plain_s * 1e3,
+        "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+        "library_ms": None,
+        "timed": f"one {n}-sample chunk of the followed track: ms by the replay of a CUDA "
+                 "graph of 50 launches, eager_ms by a loop of 50 eager launches (the host's "
+                 "share included), plain_ms the plain version on the card, host clock",
+        "eager_ms": eager_ms,
+        "samples": n,
+        "replaces_also": "what XLA compiled from analysis_chunk (smoother_step + "
+                         "velocity_step in one lax.scan); no Pallas kernel",
+    }
+    print(f"analysis_scan: {ms * 1e3:.2f} us a {n}-sample chunk on the card (graph replay), "
+          f"{eager_ms * 1e3:.2f} us eager, plain version on the card {plain_s * 1e3:.2f} ms; "
+          f"bound {record['bound_ms'] * 1e6:.3f} ns ({record['bound_by']}: {n_bytes} bytes, "
+          f"{n_ops} float64 operations)")
     return record
 
 

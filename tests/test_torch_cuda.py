@@ -19,7 +19,14 @@ report, track_id and conf exact, box within 1e-6 (reported observations
 are copies; state boxes carry the Kalman update's own rounding) and dxdy
 within 1e-4 (the kernel's 4x4 inverse and 7x7 products round in their own
 order, which the 1e4 initial covariances amplify early in a track); C
-ragged clips in one launch equal to single-clip launches bit for bit.
+ragged clips in one launch equal to single-clip launches bit for bit. K3
+with the state carried: chunk by chunk equal to one launch bit for bit,
+final state included; the final state against the plain version's within
+the same bounds (covariances relative to 1 + |want|), integer fields
+exact; the time-shard relay over one card equal to one launch. The analysis
+scan K4 (float64, ``--fmad=false``) against its plain version: events and
+carries within 1e-12 relative (the same operations in the same order;
+measured bit for bit, on the card and in the CPU build).
 """
 
 import os
@@ -381,3 +388,162 @@ def test_analysis_on_the_card_equals_cpu(dev):
     for a, b in zip(got, want):
         assert (a.time_start, a.time_end) == (b.time_start, b.time_end)
         assert a.rom == pytest.approx(b.rom, rel=1e-12)
+
+
+def _chunked_scene():
+    from vbt_tpu_torch.io.synthetic import plate_detections
+
+    dets, valid = plate_detections(120, 2, miss=set(range(17, 24)) | set(range(58, 64)),
+                                   seed=3, d_cap=25)
+    return torch.from_numpy(dets.astype(np.float32)), torch.from_numpy(valid)
+
+
+@pytest.mark.parametrize("sizes", [7, 64, [50, 3, 67]], ids=["7", "64", "uneven"])
+def test_track_scan_state_in_chunks_equals_one_launch(dev, sizes):
+    from vbt_tpu_torch.ops.track_scan_cuda import track_scan
+    from vbt_tpu_torch.runtime.streaming import track_chunk
+    from vbt_tpu_torch.tracking.scan import init_state, scan_clips
+
+    cfg = _k3_cfg("ocsort", dict(max_age=30, asso="diou", iou_threshold=0.1, max_tracks=16))
+    dets, valid = _chunked_scene()
+    frames = torch.ones(1, dets.shape[0], dtype=torch.bool)
+    whole_state, whole = scan_clips(cfg, dets[None].to(dev), valid[None].to(dev),
+                                    frames.to(dev), return_state=True)
+    edges = list(range(0, 120, sizes)) if isinstance(sizes, int) else list(
+        np.cumsum([0, *sizes[:-1]]))
+    state, parts = init_state(cfg, 1, torch.float32, dev), []
+    before = track_scan.launches
+    for a, b in zip(edges, edges[1:] + [120]):
+        state, out = track_chunk(cfg, state, dets[a:b].to(dev), valid[a:b].to(dev))
+        parts.append(out)
+    torch.cuda.synchronize()
+    assert track_scan.launches == before + len(edges)
+    for i, field in enumerate(whole):
+        assert torch.equal(torch.cat([p[i] for p in parts]), field[0])
+    for got, want in zip(state, whole_state):
+        assert torch.equal(got, want)
+    plain_state, _ = scan_clips(cfg, dets[None], valid[None], frames, return_state=True)
+    for name, got, want in zip(plain_state._fields, whole_state, plain_state):
+        got = got.cpu()
+        if not want.dtype.is_floating_point:
+            assert torch.equal(got, want), name
+        else:
+            assert ((got - want).abs() <= 1e-4 * (1 + want.abs())).all(), name
+
+
+def test_track_scan_fresh_state_in_equals_none(dev):
+    from vbt_tpu_torch.ops.track_scan_cuda import track_scan
+    from vbt_tpu_torch.tracking.scan import init_state
+
+    cfg = _k3_cfg("ocsort", dict(max_age=30, asso="diou", iou_threshold=0.1, max_tracks=16))
+    dets, valid = _chunked_scene()
+    args = (cfg, dets[None].to(dev), valid[None].to(dev),
+            torch.ones(1, dets.shape[0], dtype=torch.bool, device=dev))
+    none = track_scan(*args)
+    fresh = track_scan(*args, state=init_state(cfg, 1, torch.float32, dev))
+    assert all(torch.equal(a, b) for a, b in zip(none, fresh))
+    with pytest.raises(ValueError):  # a state of another layout
+        track_scan(*args, state=init_state(cfg, 1, torch.float32, dev)._replace(
+            x=torch.zeros(1, 16, 7, dtype=torch.float64, device=dev)))
+
+
+def test_time_shard_on_one_card_equals_one_launch(dev):
+    from vbt_tpu_torch.parallel.time_shard import track_video_time_sharded
+    from vbt_tpu_torch.tracking.scan import track_video
+
+    cfg = _k3_cfg("ocsort", dict(max_age=30, asso="diou", iou_threshold=0.1, max_tracks=16))
+    dets, valid = _chunked_scene()
+    whole = track_video(cfg, dets[:117].to(dev), valid[:117].to(dev))
+    sharded = track_video_time_sharded(cfg, dets[:117], valid[:117], [dev] * 4)
+    for got, want in zip(sharded, whole):
+        assert torch.equal(got, want.cpu())
+
+
+def _analysis_inputs(seed, n):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / 30.0
+    y = 0.5 + 0.2 * np.sin(2 * np.pi * 0.4 * t) + rng.normal(0, 0.002, n)
+    x = 0.4 + rng.normal(0, 0.005, n)
+    cols = [t, x, y, np.gradient(y), np.full(n, 0.16) + rng.normal(0, 0.01, n),
+            np.full(n, 0.28) + rng.normal(0, 0.01, n)]
+    return [torch.from_numpy(c) for c in cols]
+
+
+def _assert_rel(got, want, rel=1e-12):
+    got = got.cpu()
+    if not want.dtype.is_floating_point:
+        assert torch.equal(got, want), (got, want)
+        return
+    same = (got == want) | ((got - want).abs() <= rel * want.abs())
+    assert bool(same.all()), (got, want)
+
+
+@pytest.mark.parametrize("chunk", [7, 64])
+def test_analysis_scan_kernel_matches_plain(dev, chunk):
+    from vbt_tpu_torch.analysis.smoother_scan import initial_smoother
+    from vbt_tpu_torch.analysis.velocity_torch import initial_carry
+    from vbt_tpu_torch.ops.analysis_scan_cuda import analysis_chunk_plain, analysis_scan
+
+    cols = _analysis_inputs(5, 150)
+    pd = torch.tensor(0.45, dtype=torch.float64)
+    got = (initial_smoother(device=dev), initial_carry(device=dev))
+    want = (initial_smoother(), initial_carry())
+    before = analysis_scan.launches
+    for i in range(0, 150, chunk):
+        part = [c[i:i + chunk].contiguous() for c in cols]
+        *got, got_ev = analysis_scan(pd.to(dev), *got, [c.to(dev) for c in part])
+        *want, want_ev = analysis_chunk_plain(pd, *want, part)
+        for g, w in zip(got_ev, want_ev):
+            _assert_rel(g, w)
+        for g_carry, w_carry in zip(got, want):
+            for g, w in zip(g_carry, w_carry):
+                _assert_rel(g, w)
+    assert analysis_scan.launches == before + len(range(0, 150, chunk))
+
+
+def test_analysis_scan_kernel_rejects_what_it_cannot_take(dev):
+    from vbt_tpu_torch.analysis.smoother_scan import initial_smoother
+    from vbt_tpu_torch.analysis.velocity_torch import initial_carry
+    from vbt_tpu_torch.ops.analysis_scan_cuda import analysis_scan
+
+    cols = [c.to(dev) for c in _analysis_inputs(5, 8)]
+    pd = torch.tensor(0.45, dtype=torch.float64, device=dev)
+    sm, vc = initial_smoother(device=dev), initial_carry(device=dev)
+    with pytest.raises(TypeError):
+        analysis_scan(pd, sm, vc, [c.float() for c in cols])
+    with pytest.raises(TypeError):
+        analysis_scan(pd, initial_smoother(torch.float32, dev), vc, cols)
+    with pytest.raises(ValueError):
+        analysis_scan(pd, initial_smoother(), vc, cols)
+
+
+def test_streaming_pipeline_on_the_card_equals_cpu(dev):
+    """The stream's tracker (K3, float32) and analysis (K4) on the card
+    against the plain versions on the CPU (tracker in float32 there too),
+    fed the same detections chunk by chunk."""
+    from vbt_tpu_torch.io.synthetic import plate_detections
+    from vbt_tpu_torch.runtime.streaming import StreamingPipeline
+
+    dets, valid = plate_detections(200, 1, seed=4, jitter=0.002, d_cap=25)
+
+    class Replay:  # hands out the scene's detections, a chunk at a time
+        def __init__(self, device):
+            self.device, self.t = torch.device(device), 0
+
+        def detect_batch(self, frames):
+            return frames.shape[0]
+
+        def detections_to_tracker_inputs(self, n, threshold):
+            self.t += n
+            return dets[self.t - n:self.t], valid[self.t - n:self.t]
+
+    lanes = {d: StreamingPipeline(Replay(d), fps=30.0, tracker_dtype=torch.float32)
+             for d in (dev, "cpu")}
+    for pipe in lanes.values():
+        for i in range(0, 200, 64):
+            pipe.process_frames(np.zeros((min(64, 200 - i), 1, 1, 3), np.uint8))
+    got, want = (lanes[d].phases() for d in (dev, "cpu"))
+    assert len(want) > 0 and [p.type for p in got] == [p.type for p in want]
+    for a, b in zip(got, want):
+        assert (a.time_start, a.time_end) == (b.time_start, b.time_end)
+        assert a.rom == pytest.approx(b.rom, rel=1e-9)

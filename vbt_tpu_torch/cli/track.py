@@ -7,13 +7,19 @@ dataframe schema and filename grammar:
   OC-SORT scan in float32 on the pipeline's device: kernel K3
   (``csrc/track_scan.cu``) on the card, its plain version on the CPU.
   ``--tracker host`` is the reference-exact per-frame OC-SORT loop;
-- ``--multi_clip`` tracks every SRC in one scan (one K3 launch, a warp a
-  clip);
+- ``--multi_clip`` tracks every SRC in one scan a device (one K3 launch, a
+  warp a clip), the clips axis padded to a multiple of the device count and
+  split over the devices (:func:`runtime.batch_runner.shard_clips`);
+- ``--time_shard`` cuts each video's frame axis into one chunk a device and
+  relays the tracker state from chunk to chunk
+  (:mod:`vbt_tpu_torch.parallel.time_shard`), with output equal to one scan;
+  the devices are every card of the machine (:func:`parallel.mesh.make_mesh`),
+  in one process;
 - the detector runs on CUDA, bf16, with the NMS kernel
   (:mod:`vbt_tpu_torch.runtime.pipeline`); without a card it raises.
 
-``--time_shard`` (ROADMAP Queue 1 item 10) and ``--profile_dir`` (item 15)
-are refused with a usage error naming their item.
+``--profile_dir`` (ROADMAP Queue 1 item 8) is refused with a usage error
+naming its item.
 
 Precision: as in the JAX CLI, the scan runs in float32, so the exported
 ``dx, dy`` carry an early-track Kalman transient against a float64 run
@@ -47,8 +53,7 @@ D_CAP = 25  # detections per frame (NMS contract)
 TRACK_SLOTS = 16  # tracks reported per frame, as the JAX CLI's trackers
 
 NOT_PORTED = {
-    "--time_shard": "ROADMAP.md Queue 1 item 10 (multi-GPU: time sharding)",
-    "--profile_dir": "ROADMAP.md Queue 1 item 15 (operational shell: profiling)",
+    "--profile_dir": "ROADMAP.md Queue 1 item 8 (operational shell: profiling)",
 }
 
 
@@ -56,6 +61,15 @@ def scan_config() -> ScanTrackerConfig:
     """The reference's tracker: OC-SORT, max_age 30, DIoU, IoU 0.1, 16 slots."""
     return ScanTrackerConfig.ocsort(max_age=MAX_AGE, asso="diou", iou_threshold=0.1,
                                     max_tracks=TRACK_SLOTS)
+
+
+def job_devices(device) -> list[torch.device]:
+    """The devices a sharded job runs over: every card when the detector is
+    on one, else the detector's device alone."""
+    from vbt_tpu_torch.parallel.mesh import make_mesh
+
+    device = torch.device(device)
+    return make_mesh() if device.type == "cuda" else [device]
 
 
 def _tracks_numpy(out) -> dict:
@@ -94,11 +108,21 @@ def collect_detections(detector, src: str, threshold: float, batch_size: int = 6
     return np.concatenate(all_rows), np.concatenate(all_valid), reader.meta
 
 
-def run_scan_tracker(dets: np.ndarray, valid: np.ndarray, device="cuda") -> dict:
+def run_scan_tracker(dets: np.ndarray, valid: np.ndarray, device="cuda",
+                     time_shard: bool = False) -> dict:
     """Pass 2: one scan over the frame axis in float32 on ``device`` (kernel
-    K3 on the card, the plain version on the CPU)."""
-    out = track_video(scan_config(), torch.as_tensor(dets, dtype=torch.float32, device=device),
-                      torch.as_tensor(valid, device=device))
+    K3 on the card, the plain version on the CPU). With ``time_shard`` the
+    frame axis is cut into one chunk for each of :func:`job_devices` and the
+    tracker state relayed from chunk to chunk; the output is the same."""
+    if time_shard:
+        from vbt_tpu_torch.parallel.time_shard import track_video_time_sharded
+
+        out = track_video_time_sharded(scan_config(), torch.as_tensor(dets, dtype=torch.float32),
+                                       torch.as_tensor(valid), job_devices(device))
+    else:
+        out = track_video(scan_config(),
+                          torch.as_tensor(dets, dtype=torch.float32, device=device),
+                          torch.as_tensor(valid, device=device))
     return _tracks_numpy(out)
 
 
@@ -186,10 +210,13 @@ def render_annotated_video(src: str, tracks: dict, video_path: str, display: boo
 
 def track_many(detector, sources: list[str], detection_treshold: float, batch_size: int = 64,
                timer: StageTimer | None = None) -> dict[str, dict]:
-    """Track several videos in one scan: detections are collected per clip,
-    padded to a common length, and every clip runs in one launch of kernel
-    K3 on the pipeline's device (a warp a clip). Returns {src: data dict}."""
-    from vbt_tpu_torch.runtime.batch_runner import pad_clips, track_clips
+    """Track several videos in one scan a device: detections are collected
+    per clip and padded to a common length; with several
+    :func:`job_devices` the clips axis is padded with inert clips to a
+    multiple of their count and split over them, and each device's clips
+    run in one launch of kernel K3 (a warp a clip). Returns
+    {src: data dict}."""
+    from vbt_tpu_torch.runtime.batch_runner import pad_clips, shard_clips, track_clips
 
     timer = timer if timer is not None else StageTimer()
     per_dets, per_valid, metas = [], [], []
@@ -200,12 +227,14 @@ def track_many(detector, sources: list[str], detection_treshold: float, batch_si
             per_valid.append(valid)
             metas.append(meta)
     with timer.stage("tracker[multi-clip]"):
-        dets, det_valid, frame_valid = pad_clips(per_dets, per_valid)
-        dev = detector.device
-        out = track_clips(scan_config(), torch.as_tensor(dets, dtype=torch.float32, device=dev),
-                          torch.as_tensor(det_valid, device=dev),
-                          torch.as_tensor(frame_valid, device=dev))
-        out = _tracks_numpy(out)
+        arrays = pad_clips(per_dets, per_valid)
+        devices = job_devices(detector.device)
+        pad = -len(sources) % len(devices)  # inert clips: no valid frame
+        arrays = [np.concatenate([a, np.zeros((pad, *a.shape[1:]), a.dtype)]) for a in arrays]
+        arrays[0] = arrays[0].astype(np.float32)
+        shares = [_tracks_numpy(track_clips(scan_config(), *share))
+                  for share in shard_clips(devices, *arrays)]
+        out = {k: np.concatenate([s[k] for s in shares]) for k in shares[0]}
     results = {}
     with timer.stage("dataframe"):
         for i, s in enumerate(sources):
@@ -224,8 +253,10 @@ def track_one(
     frame_stride: int = 1,
     batch_size: int = 64,
     timer: StageTimer | None = None,
+    time_shard: bool = False,
 ) -> dict:
-    """One video -> the columnar capture dict (see :func:`tracks_to_data`)."""
+    """One video -> the columnar capture dict (see :func:`tracks_to_data`).
+    ``time_shard`` as in :func:`run_scan_tracker`."""
     if tracker_kind not in ("scan", "host"):
         raise ValueError(f"tracker_kind must be 'scan' or 'host', got {tracker_kind!r}")
     timer = timer if timer is not None else StageTimer()
@@ -237,7 +268,7 @@ def track_one(
         dets, valid = dets[keep], valid[keep]
     with timer.stage(f"tracker[{tracker_kind}]"):
         if tracker_kind == "scan":
-            tracks = run_scan_tracker(dets, valid, detector.device)
+            tracks = run_scan_tracker(dets, valid, detector.device, time_shard=time_shard)
         else:
             tracks = run_host_tracker(dets, valid)
     if video_path is not None:
@@ -254,8 +285,12 @@ def _export_df(data: dict, src: str, model: str, df_dir: str) -> None:
 
 
 def run(src, model, detection_treshold, df_dir, video_dir, display, frame_stride,
-        batch_size, timing, tracker="scan", multi_clip=False, device="cuda"):
-    """The body of the CLI, callable without click."""
+        batch_size, timing, tracker="scan", multi_clip=False, device="cuda",
+        time_shard=False):
+    """The body of the CLI, callable without click. ``multi_clip`` and
+    ``time_shard`` split over :func:`job_devices`. Each SRC is checked when
+    its turn comes, so the videos before a missing one are tracked and
+    exported; ``multi_clip`` checks them all first."""
     from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
 
     if df_dir is not None:
@@ -264,10 +299,10 @@ def run(src, model, detection_treshold, df_dir, video_dir, display, frame_stride
         os.makedirs(video_dir, exist_ok=True)
     detector = DetectionPipeline.from_model_arg(model, device=device)
     timer = StageTimer()
-    for s in src:
-        if not os.path.isfile(s):
-            raise FileNotFoundError(s)
     if multi_clip and len(src) > 1:
+        for s in src:
+            if not os.path.isfile(s):
+                raise FileNotFoundError(s)
         results = track_many(detector, list(src), detection_treshold, batch_size=batch_size,
                              timer=timer)
         if df_dir is not None:
@@ -278,12 +313,15 @@ def run(src, model, detection_treshold, df_dir, video_dir, display, frame_stride
             print(timer.report())
         return
     for s in src:
+        if not os.path.isfile(s):
+            raise FileNotFoundError(s)
         video_path = None
         if video_dir is not None:
             video_path = os.path.join(video_dir, f"{os.path.basename(s).split('.')[0]}.mp4")
         data = track_one(detector, s, detection_treshold, tracker_kind=tracker,
                          video_path=video_path, display=display,
-                         frame_stride=frame_stride, batch_size=batch_size, timer=timer)
+                         frame_stride=frame_stride, batch_size=batch_size, timer=timer,
+                         time_shard=time_shard)
         if df_dir is not None and data["id"]:
             _export_df(data, s, model, df_dir)
     if timing:
@@ -321,9 +359,9 @@ def make_command():
                   help="Device trace directory (not ported yet).")
     @click.option("--timing", is_flag=True, help="Print per-stage wall-clock accounting.")
     @click.option("--multi_clip", is_flag=True,
-                  help="Track all SRC videos in one scan on the card, a warp a clip (no per-video video export in this mode).")
+                  help="Track all SRC videos in one scan a card, a warp a clip, the clips split over the cards (no per-video video export in this mode).")
     @click.option("--time_shard", is_flag=True,
-                  help="Shard each video's frame axis over devices (not ported yet).")
+                  help="Cut each video's frame axis into one chunk per card; the tracker state is relayed from chunk to chunk (bit-equal output).")
     def command(src, model, detection_treshold, display_image_height, df_dir, video_dir,
                 threads, tracker, display, frame_stride, batch_size, profile_dir, timing,
                 multi_clip, time_shard):
@@ -331,12 +369,10 @@ def make_command():
         and create a dataframe containing the detected objects their raw
         and filtered positions and velocities at specific times in the video."""
         del display_image_height, threads
-        refused = {"--time_shard": time_shard, "--profile_dir": profile_dir is not None}
-        for flag, given in refused.items():
-            if given:
-                raise click.UsageError(f"{flag} is not ported yet: {NOT_PORTED[flag]}")
+        if profile_dir is not None:
+            raise click.UsageError(f"--profile_dir is not ported yet: {NOT_PORTED['--profile_dir']}")
         run(src, model, detection_treshold, df_dir, video_dir, display, frame_stride,
-            batch_size, timing, tracker=tracker, multi_clip=multi_clip)
+            batch_size, timing, tracker=tracker, multi_clip=multi_clip, time_shard=time_shard)
 
     return command
 

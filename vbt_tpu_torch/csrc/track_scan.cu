@@ -9,6 +9,13 @@
 // Hungarian, the first True of the thresholded affinity in the SORT
 // shortcut, births in detection order from the running id counter.
 //
+// A clip's tracker state can come in from global memory and go back out
+// (State, the layout of TrackerState): a video then runs in chunks, one
+// launch each, with the state of one chunk's end as the next one's start.
+// Without a state in, a clip starts from the fresh state, as before; the
+// state goes out only where the caller asks for it. A chunked run equals
+// one launch bit for bit: the state is copied, never recomputed.
+//
 // What bounds it: not bytes (a frame reads 25 x 6 floats and writes 16 x 11
 // values) nor operations (a few thousand a frame), but the serial chain of
 // T frame steps, each a chain of dependent steps inside: predict, cost,
@@ -35,6 +42,7 @@
 
 #include <cstdint>
 #include <cmath>
+#include <cstring>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -329,11 +337,100 @@ struct Params {
   float iou_threshold, inertia;
 };
 
+// TrackerState's fields in its order (vbt_tpu_torch/tracking/scan.py), each
+// a contiguous tensor: (C, S, ...) per slot, (C,) for next_id and frame;
+// float32, int32, and bool as one byte. x == nullptr: no state.
+struct State {
+  float* x;            // (C, S, 7)
+  float* p;            // (C, S, 7, 7)
+  uint8_t* alive;      // (C, S)
+  int32_t* tsu;
+  int32_t* hits;
+  int32_t* hit_streak;
+  int32_t* age;
+  int32_t* track_id;
+  float* conf;
+  float* cls;
+  float* last_obs;     // (C, S, 5)
+  float* velocity;     // (C, S, 2)
+  float* obs_ring;     // (C, S, delta_t, 5), the slot of an age is age % delta_t
+  int32_t* ring_age;   // (C, S, delta_t)
+  float* frozen_x;     // (C, S, 7)
+  float* frozen_p;     // (C, S, 7, 7)
+  uint8_t* has_frozen; // (C, S)
+  int32_t* miss_gap;
+  int32_t* next_id;    // (C,)
+  int32_t* frame;      // (C,)
+};
+constexpr int kStateFields = 20;
+static_assert(sizeof(State) == kStateFields * sizeof(void*), "State is a list of pointers");
+
+// The per-slot part of the state lives in shared memory (Clip) and in the
+// lane's registers (Slot); next_id and frame in every lane's registers.
+struct Slot {
+  bool alive, has_frozen;
+  int tsu, hits, hit_streak, age, track_id, miss_gap;
+  float conf, cls;
+};
+
+template <class T>
+HD void copy_n(T* dst, const T* src, int n) {
+  for (int i = 0; i < n; ++i) dst[i] = src[i];
+}
+
+// Slot `lane` of clip c from global memory into the clip's shared state.
+__device__ __forceinline__ void load_slot(const State& in, Clip& sh, Slot& r, int c, int S,
+                                          int lane, int DT) {
+  const size_t cs = (size_t)c * S + lane;
+  copy_n(sh.x[lane], in.x + cs * kDimX, kDimX);
+  copy_n(sh.p[lane], in.p + cs * kP, kP);
+  copy_n(sh.frozen_x[lane], in.frozen_x + cs * kDimX, kDimX);
+  copy_n(sh.frozen_p[lane], in.frozen_p + cs * kP, kP);
+  copy_n(sh.last_obs[lane], in.last_obs + cs * 5, 5);
+  copy_n(sh.vel[lane], in.velocity + cs * 2, 2);
+  copy_n(sh.ring[lane], in.obs_ring + cs * DT * 5, DT * 5);
+  copy_n(sh.ring_age[lane], in.ring_age + cs * DT, DT);
+  r.alive = in.alive[cs] != 0;
+  r.has_frozen = in.has_frozen[cs] != 0;
+  r.tsu = in.tsu[cs];
+  r.hits = in.hits[cs];
+  r.hit_streak = in.hit_streak[cs];
+  r.age = in.age[cs];
+  r.track_id = in.track_id[cs];
+  r.miss_gap = in.miss_gap[cs];
+  r.conf = in.conf[cs];
+  r.cls = in.cls[cs];
+}
+
+__device__ __forceinline__ void store_slot(const State& out, const Clip& sh, const Slot& r,
+                                           int c, int S, int lane, int DT) {
+  const size_t cs = (size_t)c * S + lane;
+  copy_n(out.x + cs * kDimX, sh.x[lane], kDimX);
+  copy_n(out.p + cs * kP, sh.p[lane], kP);
+  copy_n(out.frozen_x + cs * kDimX, sh.frozen_x[lane], kDimX);
+  copy_n(out.frozen_p + cs * kP, sh.frozen_p[lane], kP);
+  copy_n(out.last_obs + cs * 5, sh.last_obs[lane], 5);
+  copy_n(out.velocity + cs * 2, sh.vel[lane], 2);
+  copy_n(out.obs_ring + cs * DT * 5, sh.ring[lane], DT * 5);
+  copy_n(out.ring_age + cs * DT, sh.ring_age[lane], DT);
+  out.alive[cs] = r.alive ? 1 : 0;
+  out.has_frozen[cs] = r.has_frozen ? 1 : 0;
+  out.tsu[cs] = r.tsu;
+  out.hits[cs] = r.hits;
+  out.hit_streak[cs] = r.hit_streak;
+  out.age[cs] = r.age;
+  out.track_id[cs] = r.track_id;
+  out.miss_gap[cs] = r.miss_gap;
+  out.conf[cs] = r.conf;
+  out.cls[cs] = r.cls;
+}
+
 __global__ void __launch_bounds__(32) track_scan_kernel(
     const float* __restrict__ dets, const uint8_t* __restrict__ det_valid,
     const uint8_t* __restrict__ frame_valid, uint8_t* __restrict__ report_out,
     float* __restrict__ box_out, int32_t* __restrict__ id_out, float* __restrict__ conf_out,
-    float* __restrict__ cls_out, float* __restrict__ dxdy_out, Params prm) {
+    float* __restrict__ cls_out, float* __restrict__ dxdy_out, State state_in, State state_out,
+    Params prm) {
   __shared__ Clip sh;
   const int lane = threadIdx.x;
   const int c = blockIdx.x;
@@ -351,7 +448,24 @@ __global__ void __launch_bounds__(32) track_scan_kernel(
   int tsu = 0, hits = 0, hit_streak = 0, age = 0, track_id = 0, miss_gap = 0;
   float conf = 0.0f, cls = 0.0f;
   int next_id = 1, frame = 0;
-  if (is_slot) {
+  if (state_in.x != nullptr) {
+    if (is_slot) {
+      Slot r;
+      load_slot(state_in, sh, r, c, S, lane, DT);
+      alive = r.alive;
+      has_frozen = r.has_frozen;
+      tsu = r.tsu;
+      hits = r.hits;
+      hit_streak = r.hit_streak;
+      age = r.age;
+      track_id = r.track_id;
+      miss_gap = r.miss_gap;
+      conf = r.conf;
+      cls = r.cls;
+    }
+    next_id = state_in.next_id[c];
+    frame = state_in.frame[c];
+  } else if (is_slot) {
     const float z0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     initial_state(z0, sh.x[lane], sh.p[lane]);
     for (int i = 0; i < kDimX; ++i) sh.frozen_x[lane][i] = 0.0f;
@@ -585,6 +699,23 @@ __global__ void __launch_bounds__(32) track_scan_kernel(
     }
     __syncwarp();
   }
+
+  if (state_out.x != nullptr) {
+    if (is_slot) {
+      const Slot r{alive, has_frozen, tsu, hits, hit_streak, age, track_id, miss_gap, conf, cls};
+      store_slot(state_out, sh, r, c, S, lane, DT);
+    }
+    if (lane == 0) {
+      state_out.next_id[c] = next_id;
+      state_out.frame[c] = frame;
+    }
+  }
+}
+
+State state_from(void* const* fields) {
+  State s{};
+  if (fields != nullptr) std::memcpy(&s, fields, sizeof(State));
+  return s;
 }
 
 }  // namespace
@@ -597,7 +728,8 @@ extern "C" int vbt_track_scan_launch(const void* dets, const void* det_valid,
                                      void* track_id, void* conf, void* cls, void* dxdy, int C,
                                      int T, int D, int S, int max_age, int min_hits,
                                      float iou_threshold, int asso, float inertia, int delta_t,
-                                     int flags, void* stream) {
+                                     int flags, void* const* state_in, void* const* state_out,
+                                     void* stream) {
   if (C <= 0 || T <= 0) return 0;
   if (D < 1 || D > kMaxDets || S < 1 || S > kMaxSlots || delta_t < 1 || delta_t > kMaxDeltaT)
     return (int)cudaErrorInvalidValue;
@@ -605,7 +737,7 @@ extern "C" int vbt_track_scan_launch(const void* dets, const void* det_valid,
   track_scan_kernel<<<C, 32, 0, (cudaStream_t)stream>>>(
       (const float*)dets, (const uint8_t*)det_valid, (const uint8_t*)frame_valid,
       (uint8_t*)report, (float*)box, (int32_t*)track_id, (float*)conf, (float*)cls,
-      (float*)dxdy, prm);
+      (float*)dxdy, state_from(state_in), state_from(state_out), prm);
   return (int)cudaGetLastError();
 }
 #endif

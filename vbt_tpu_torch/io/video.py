@@ -51,7 +51,9 @@ class VideoReader:
         """Yields (frames (B,H,W,3) uint8 RGB, valid (B,) bool, start_index).
         A lent buffer belongs to the caller from the yield on; the reader
         asks for the next one when it decodes the next frame. Slots past
-        the last frame of the tail batch hold stale pixels (masked)."""
+        the last frame of the tail batch hold stale pixels (masked). A
+        decoded frame of another shape than the video reports raises
+        ``ValueError``."""
         import cv2
 
         b = self.batch_size
@@ -65,6 +67,10 @@ class VideoReader:
                 break
             if buf is None:
                 buf = self._lend(shape) if self._lend else np.zeros(shape, np.uint8)
+            if frame.shape != shape[1:]:
+                # cvtColor would write a new array and leave the batch stale.
+                raise ValueError(f"decoded frame {frame.shape}, the video reports "
+                                 f"{shape[1:]}")
             cv2.cvtColor(frame, cv2.COLOR_BGR2RGB, dst=buf[count])
             count += 1
             if count == b:

@@ -27,10 +27,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vbt_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 # csrc/<name>.cu -> build/vbt_tpu_torch/lib<name>.so
-SOURCES = ("nms", "fused_mbconv", "fused_mbconv_mma", "track_scan")
-# Flags of one source after the standard ones. The tracker rounds each
-# multiply and add apart, as the plain version's CPU kernels do.
-SOURCE_FLAGS = {"track_scan": ["--fmad=false"]}
+SOURCES = ("nms", "fused_mbconv", "fused_mbconv_mma", "track_scan", "analysis_scan")
+# Flags of one source after the standard ones. The tracker and the analysis
+# scan round each multiply and add apart, as their plain versions' CPU
+# kernels do.
+SOURCE_FLAGS = {"track_scan": ["--fmad=false"], "analysis_scan": ["--fmad=false"]}
 PTXAS_VERBOSE = ["-Xptxas", "-v"]  # registers, spills and shared memory of every kernel
 
 build_log: dict[str, str] = {}  # nvcc's output of the last build of each source

@@ -9,6 +9,11 @@ in ``tracking/scan.py::scan_clips`` sends CUDA tensors here and CPU tensors
 there. :func:`track_scan` takes CUDA tensors only, float32 only, at most 32
 slots and 32 detections a frame, contiguous; it raises on anything else and
 has no fallback. ``track_scan.launches`` counts kernel launches.
+
+A ``TrackerState`` (``tracking/scan.py``, float32, every field contiguous
+on the inputs' card) can go in as every clip's initial state, and the
+final state can come out: a video then runs in chunks with the state
+carried, bit for bit as one launch.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import functools
 import torch
 
 from vbt_tpu_torch.ops import _build
+from vbt_tpu_torch.tracking.scan import TrackerState, init_state
 
 MAX_SLOTS = 32  # a lane a slot (csrc/track_scan.cu kMaxSlots)
 MAX_DETS = 32  # a lane a detection row (kMaxDets)
@@ -33,18 +39,47 @@ def _launcher():
     fn = _build.load("track_scan").vbt_track_scan_launch
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.lru_cache(maxsize=16)
+def _state_layout(cfg, c: int) -> TrackerState:
+    """The layout the kernel reads and writes: ``init_state``'s, float32,
+    as shapes and dtypes only (on the meta device). Cached: building it
+    takes about a millisecond of the host, more than a chunk's launch."""
+    return init_state(cfg, c, torch.float32, "meta")
+
+
+def _state_fields(cfg, state: TrackerState, c: int, dev: torch.device) -> list[torch.Tensor]:
+    """The fields of ``state``, checked against the kernel's layout."""
+    for name, t, want in zip(TrackerState._fields, state, _state_layout(cfg, c)):
+        if t.shape != want.shape or t.dtype != want.dtype:
+            raise ValueError(f"state.{name}: want {want.dtype} {tuple(want.shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"state.{name}: want a contiguous tensor on {dev}, got "
+                             f"{t.device}, strides {t.stride()}")
+    return list(state)
+
+
+def _pointers(fields) -> ctypes.Array | None:
+    return None if fields is None else (ctypes.c_void_p * len(fields))(
+        *(t.data_ptr() for t in fields))
+
+
 def track_scan(cfg, dets: torch.Tensor, det_valid: torch.Tensor, frame_valid: torch.Tensor,
-               skip_empty_frames: bool = True) -> tuple[torch.Tensor, ...]:
+               skip_empty_frames: bool = True, state=None, return_state: bool = False):
     """``cfg`` a ``ScanTrackerConfig``; ``dets`` (C, T, D, 6) float32,
     ``det_valid`` (C, T, D) bool, ``frame_valid`` (C, T) bool, all on one
     CUDA device -> (report (C, T, S) bool, box (C, T, S, 4), track_id
     (C, T, S) int32, conf, cls (C, T, S), dxdy (C, T, S, 2)). Fields other
-    than ``report`` are zero on inactive frames."""
+    than ``report`` are zero on inactive frames.
+
+    ``state``, a ``TrackerState`` with C clips, is every clip's initial
+    state (``None``: the fresh state). With ``return_state`` the result is
+    ``(final TrackerState, outputs)``."""
     if dets.dim() != 4 or dets.shape[-1] != 6:
         raise ValueError(f"want dets (C, T, D, 6), got {tuple(dets.shape)}")
     c, t, d, _ = dets.shape
@@ -68,14 +103,23 @@ def track_scan(cfg, dets: torch.Tensor, det_valid: torch.Tensor, frame_valid: to
                          f"{sorted(ASSO)}; got {cfg.delta_t}, {cfg.asso!r}")
     if not (dets.is_contiguous() and det_valid.is_contiguous() and frame_valid.is_contiguous()):
         raise ValueError("inputs must be contiguous")
+    fields_in = None if state is None else _state_fields(cfg, state, c, dev)
+    final = None
+    if return_state:
+        final = TrackerState(*(torch.empty(t.shape, dtype=t.dtype, device=dev)
+                               for t in _state_layout(cfg, c)))
     report = torch.empty((c, t, s), dtype=torch.bool, device=dev)
     box = torch.empty((c, t, s, 4), dtype=torch.float32, device=dev)
     track_id = torch.empty((c, t, s), dtype=torch.int32, device=dev)
     conf = torch.empty((c, t, s), dtype=torch.float32, device=dev)
     cls = torch.empty((c, t, s), dtype=torch.float32, device=dev)
     dxdy = torch.empty((c, t, s, 2), dtype=torch.float32, device=dev)
+    outs = (report, box, track_id, conf, cls, dxdy)
     if c == 0 or t == 0:
-        return report, box, track_id, conf, cls, dxdy
+        if final is not None:  # no frame: the state goes out as it came in
+            start = state if state is not None else init_state(cfg, c, torch.float32, dev)
+            final = TrackerState(*(f.clone() for f in start))
+        return (final, outs) if return_state else outs
     flags = (MOMENTUM * cfg.use_momentum | RECOVERY * cfg.use_recovery
              | REUPDATE * cfg.use_reupdate | REPORT_OBS * cfg.report_observation
              | SKIP_EMPTY * bool(skip_empty_frames))
@@ -85,11 +129,12 @@ def track_scan(cfg, dets: torch.Tensor, det_valid: torch.Tensor, frame_valid: to
             dets.data_ptr(), det_valid.data_ptr(), frame_valid.data_ptr(), report.data_ptr(),
             box.data_ptr(), track_id.data_ptr(), conf.data_ptr(), cls.data_ptr(),
             dxdy.data_ptr(), c, t, d, s, cfg.max_age, cfg.min_hits, cfg.iou_threshold,
-            ASSO[cfg.asso], cfg.inertia, cfg.delta_t, flags, stream)
+            ASSO[cfg.asso], cfg.inertia, cfg.delta_t, flags, _pointers(fields_in),
+            _pointers(None if final is None else list(final)), stream)
     if err != 0:
         raise RuntimeError(f"track_scan kernel launch failed: cudaError {err}")
     track_scan.launches += 1
-    return report, box, track_id, conf, cls, dxdy
+    return (final, outs) if return_state else outs
 
 
 track_scan.launches = 0

@@ -1,16 +1,17 @@
-"""Multi-clip tracking on one card: several clips in one scan.
+"""Multi-clip tracking: several clips in one scan, over one or more devices.
 
-Port of ``vbt_tpu.runtime.batch_runner`` for one device. Clips of ragged
-lengths are padded to a common length (:func:`pad_clips`); the padding
-frames are inert (they neither advance a track nor report). On CUDA the
-clips run in one launch of kernel K3, a warp each; on the CPU through the
-plain version. Sharding the clips axis over several devices (the JAX
-``shard_clips``) is not ported (ROADMAP Queue 1 item 10).
+Port of ``vbt_tpu.runtime.batch_runner``. Clips of ragged lengths are
+padded to a common length (:func:`pad_clips`); the padding frames are inert
+(they neither advance a track nor report). On CUDA the clips of one device
+run in one launch of kernel K3, a warp each; on the CPU through the plain
+version. :func:`shard_clips` splits the clips axis over a device list, one
+scan a device; clips are independent, so nothing passes between devices.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from vbt_tpu_torch.tracking.scan import FrameTracks, ScanTrackerConfig, scan_clips
 
@@ -39,3 +40,16 @@ def pad_clips(per_clip_dets: list[np.ndarray], per_clip_valid: list[np.ndarray])
         det_valid[i, :t] = v
         frame_valid[i, :t] = True
     return dets, det_valid, frame_valid
+
+
+def shard_clips(devices, *arrays) -> list[tuple[torch.Tensor, ...]]:
+    """Split clip-major arrays (numpy or tensors, leading clips axis C, a
+    multiple of ``len(devices)``) into one equal, contiguous share a device:
+    ``[(array_0 share, array_1 share, ...) on devices[0], ...]``."""
+    n = len(devices)
+    c = arrays[0].shape[0]
+    if c % n:
+        raise ValueError(f"{c} clips do not split evenly over {n} devices; pad first")
+    size = c // n
+    return [tuple(torch.as_tensor(a)[r * size:(r + 1) * size].contiguous().to(dev)
+                  for a in arrays) for r, dev in enumerate(devices)]

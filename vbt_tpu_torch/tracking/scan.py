@@ -414,13 +414,15 @@ def make_scan_step(cfg: ScanTrackerConfig, skip_empty_frames: bool):
 
 
 def scan_clips_plain(cfg: ScanTrackerConfig, dets: torch.Tensor, det_valid: torch.Tensor,
-                     frame_valid: torch.Tensor,
-                     skip_empty_frames: bool = True) -> FrameTracks:
+                     frame_valid: torch.Tensor, skip_empty_frames: bool = True,
+                     state: TrackerState | None = None, return_state: bool = False):
     """The plain version of kernel K3: ``dets`` (C, T, D, 6), ``det_valid``
     (C, T, D), ``frame_valid`` (C, T) -> FrameTracks (C, T, S, ...), in the
-    dtype of ``dets`` and on its device, one :func:`tracker_step` a frame."""
+    dtype of ``dets`` and on its device, one :func:`tracker_step` a frame.
+    ``state`` is the clips' initial state (``None``: :func:`init_state`);
+    with ``return_state`` the result is ``(final state, FrameTracks)``."""
     n_clips, t_frames = dets.shape[:2]
-    st = init_state(cfg, n_clips, dets.dtype, dets.device)
+    st = init_state(cfg, n_clips, dets.dtype, dets.device) if state is None else state
     step = make_scan_step(cfg, skip_empty_frames)
     outs = []
     for t in range(t_frames):
@@ -430,8 +432,10 @@ def scan_clips_plain(cfg: ScanTrackerConfig, dets: torch.Tensor, det_valid: torc
         _, out = step(st, dets.new_zeros((n_clips,) + dets.shape[2:]),
                       det_valid.new_zeros((n_clips,) + det_valid.shape[2:]),
                       frame_valid.new_zeros((n_clips,)))
-        return FrameTracks(*(f[:, None][:, :0] for f in out))
-    return FrameTracks(*(torch.stack(field, dim=1) for field in zip(*outs)))
+        tracks = FrameTracks(*(f[:, None][:, :0] for f in out))
+    else:
+        tracks = FrameTracks(*(torch.stack(field, dim=1) for field in zip(*outs)))
+    return (st, tracks) if return_state else tracks
 
 
 def _as_tensors(*arrays) -> tuple[torch.Tensor, ...]:
@@ -441,18 +445,22 @@ def _as_tensors(*arrays) -> tuple[torch.Tensor, ...]:
 
 
 def scan_clips(cfg: ScanTrackerConfig, dets, det_valid, frame_valid,
-               skip_empty_frames: bool = True) -> FrameTracks:
+               skip_empty_frames: bool = True, state: TrackerState | None = None,
+               return_state: bool = False):
     """Dispatch on the device: CUDA tensors to kernel K3 (float32 only; it
     raises on what it does not take), CPU tensors and numpy arrays to
-    :func:`scan_clips_plain`."""
+    :func:`scan_clips_plain`. ``state`` and ``return_state`` as there."""
     dets, det_valid, frame_valid = _as_tensors(dets, det_valid, frame_valid)
     if dets.device.type == "cuda":
         from vbt_tpu_torch.ops.track_scan_cuda import track_scan
 
-        return FrameTracks(*track_scan(cfg, dets, det_valid, frame_valid, skip_empty_frames))
+        out = track_scan(cfg, dets, det_valid, frame_valid, skip_empty_frames, state=state,
+                         return_state=return_state)
+        return (out[0], FrameTracks(*out[1])) if return_state else FrameTracks(*out)
     if dets.device.type != "cpu":
         raise ValueError(f"unsupported device {dets.device}")
-    return scan_clips_plain(cfg, dets, det_valid.bool(), frame_valid.bool(), skip_empty_frames)
+    return scan_clips_plain(cfg, dets, det_valid.bool(), frame_valid.bool(), skip_empty_frames,
+                            state=state, return_state=return_state)
 
 
 def track_video(cfg: ScanTrackerConfig, dets, det_valid,
