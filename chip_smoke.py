@@ -79,7 +79,24 @@ Phases, each of which raises on failure:
    frames/s and the host-clock spans of a chunk (detect, K3, the followed
    id's selection, K4, phases), then K3's time a 64-frame chunk with the
    state in and out and K4's time a 64-sample chunk (CUDA-graph replay)
-   against its plain version on the card and its bound.
+   against its plain version on the card and its bound;
+11. int8: the shipped lite0 calibrated on the first 64 frames
+   (``DetectionPipeline.calibrate``), then the int8 lane over the 256 frames
+   with every count at 0 before and read after (NMS 4, K3 1; every dense
+   conv through ``torch._int_mm``, none on the float path), its trackers and
+   analysis checked as in phase 4; every distinct int8 product of lite0 at
+   320, at batch 64 and at batch 1, on the card (``_int_mm`` after the
+   zero-padding rule) against the plain version on CPU copies of the same
+   int8 inputs, bit for bit; the int8 lane's top boxes and scores beside the
+   bf16 lane's; the int8 forward's device time beside the bf16 forward's
+   (CUDA events) and its share in ``_int_mm``, quantize and dequantize
+   (``torch.profiler``);
+12. eval: synthetic plate images at five sizes, batch 1 each as
+   ``vbt-torch-eval`` feeds them, through the bf16 and the int8 lane (NMS
+   once an image): ``create_detections_df``'s matching of each image's
+   detections to the analytic ``plate_boxes`` and ``evaluate_model``'s COCO
+   AP, AP50 and AP75, printed for both lanes; the staging rings alive at the
+   end, within ``MAX_RINGS``.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -1028,6 +1045,10 @@ def main(argv=None) -> int:
     stream = _stream_path(pipe, frames, kernels, xla["phases"])
     records.append(_time_k3(cfg, xla, max(k3_err, k3_chunk_err), stream, relay_launches))
     records.append(_time_k4(series, k4_err, stream))
+    # 11. int8.
+    qpipe = _int8_lane(pipe, frames, kernels, xla)
+    # 12. Evaluation, batch 1 an image, both lanes.
+    _eval_lanes({"bf16": pipe, "int8": qpipe}, kernels)
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1342,6 +1363,196 @@ def _time_k4(series, k4_err, stream) -> dict:
           f"bound {record['bound_ms'] * 1e6:.3f} ns ({record['bound_by']}: {n_bytes} bytes, "
           f"{n_ops} float64 operations)")
     return record
+
+
+def _int8_products(qpipe, images) -> dict:
+    """Every distinct int8 product one forward of ``images`` makes:
+    ``{(x shape, w shape, stride): (padded int8 input, int8 weight, stride)}``."""
+    from vbt_tpu_torch.models import quant as q
+
+    seen, launch = {}, q.int8_conv
+
+    def capture(x_q, w_q, stride):
+        seen.setdefault((tuple(x_q.shape), tuple(w_q.shape), stride), (x_q, w_q, stride))
+        return launch(x_q, w_q, stride)
+
+    q.int8_conv = capture
+    try:
+        qpipe.run_model(images)
+    finally:
+        q.int8_conv = launch
+    return seen
+
+
+def _forward_profile(pipe, images, labels=(), reps: int = 3) -> tuple[float, dict]:
+    """``torch.profiler`` over ``reps`` forwards of ``images``: the device's
+    busy time a forward in us (the union of its kernels' spans), and for
+    each ``record_function`` label the time a forward of the kernels
+    launched inside it (the host-side range's ops and their kernels; the
+    device-side range of the same name spans the gaps between them too, so
+    it is left out of both)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            pipe.run_model(images)
+        torch.cuda.synchronize()
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == cuda and e.name not in labels
+                   and not e.name.startswith("Activity Buffer"))
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    parts = {label: sum(e.device_time_total for e in prof.events()
+                        if e.name == label and e.device_type == cpu) / reps
+             for label in labels}
+    return busy / reps, parts
+
+
+def _int8_profile(pipe, qpipe, images) -> None:
+    """The bf16 and the int8 forward's device time from ``torch.profiler``,
+    and the int8 forward's by part: quantize, the int8 product (im2col,
+    padding and ``_int_mm``) and dequantize each run inside a
+    ``record_function`` of its name, and ``_int_mm`` alone."""
+    from torch.profiler import record_function
+    from vbt_tpu_torch.models import quant as q
+
+    parts = {"quantize": q.quantize, "int8_conv": q.int8_conv, "dequantize": q.dequantize}
+
+    def labelled(name, fn):
+        def call(*args):
+            with record_function(name):
+                return fn(*args)
+        return call
+
+    bf16_us, _ = _forward_profile(pipe, images)
+    for name, fn in parts.items():
+        setattr(q, name, labelled(name, fn))
+    try:
+        int8_us, by_part = _forward_profile(qpipe, images, (*parts, "aten::_int_mm"))
+    finally:
+        for name, fn in parts.items():
+            setattr(q, name, fn)
+    if not int8_us:
+        print("int8 profile: the profiler recorded no device time (not measured)")
+        return
+    print(f"profile, mean of 3 forwards (B = {images.shape[0]}): device busy bf16 "
+          f"{bf16_us / 1e3:.3f} ms, int8 {int8_us / 1e3:.3f} ms a forward; int8 kernels by "
+          f"part: " + ", ".join(f"{name} {us / 1e3:.3f} ms ({us / int8_us:.1%})"
+                                for name, us in by_part.items()))
+
+
+def _int8_lane(pipe, frames, kernels, xla):
+    """Phase 11: calibrate, drive the int8 lane with the counts at 0, hold
+    every int8 product of lite0 at batch 64 and 1 bit for bit against the
+    plain version on the CPU, compare with the bf16 lane, time and profile
+    the int8 forward. Returns the int8 pipeline."""
+    import torch
+    from vbt_tpu_torch.models import quant as q
+    from vbt_tpu_torch.ops.preprocess import preprocess_frames
+
+    t0 = time.perf_counter()
+    qpipe = pipe.calibrate(frames[:BATCH])
+    n_scales = sum(k.endswith(".act_scale") for k in qpipe.weights)
+    print(f"int8: calibrated {n_scales} activation scales on {BATCH} frames in "
+          f"{time.perf_counter() - t0:.2f} s")
+    with torch.inference_mode():
+        images = preprocess_frames(pipe._frames(frames[:BATCH]), pipe.spec.input_size,
+                                   pipe.dtype)
+        q.int8_matmul.calls = 0
+        qpipe.run_model(images)
+        per_forward = q.int8_matmul.calls
+    q.int8_matmul.calls = 0
+    run = _main_path("int8", qpipe, frames, kernels,
+                     {"nms": BATCHES, "fused_mbconv": 0, "track_scan": 1, "analysis_scan": 0})
+    calls = q.int8_matmul.calls  # the main path's warm-up batch, then its BATCHES
+    print(f"int8: {calls} int8 products on the main path ({per_forward} a forward, "
+          f"{len(q.dense_convs(qpipe.model))} dense convs)")
+    if per_forward < len(q.dense_convs(qpipe.model)) or calls != per_forward * (BATCHES + 1):
+        raise AssertionError(f"int8: {calls} int8 products, want {per_forward} x {BATCHES + 1}")
+
+    n_shapes, t0 = 0, time.perf_counter()
+    with torch.inference_mode():
+        for batch in (images, images[:1]):
+            for (xs, ws, stride), (x_q, w_q, _) in _int8_products(qpipe, batch).items():
+                got = q.int8_conv_gemm(x_q, w_q, stride).cpu()
+                want = q.int8_conv_plain(x_q.cpu(), w_q.cpu(), stride)
+                if got.dtype != torch.int32 or not torch.equal(got, want):
+                    raise AssertionError(f"int8 product x {xs} w {ws} s{stride}: card and "
+                                         f"plain accumulators differ by "
+                                         f"{(got.double() - want.double()).abs().max().item()}")
+                n_shapes += 1
+    print(f"int8: {n_shapes} distinct int8 products (B = {BATCH} and B = 1, shapes (m, k, n) "
+          f"padded per int_mm_shape) equal the plain version on the CPU bit for bit "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    top = lambda r: (r["rows"][:, 0, :4], r["rows"][:, 0, 4])  # noqa: E731
+    (qb, qs), (fb, fs) = top(run), top(xla)
+    dbox, dscore = float(np.abs(qb - fb).max()), float(np.abs(qs - fs).max())
+    print(f"int8 vs bf16 on the same {len(frames)} frames: max |d top box| {dbox:.4g} of the "
+          f"frame, max |d top score| {dscore:.4g}; mean top score int8 {qs.mean():.4f}, "
+          f"bf16 {fs.mean():.4f}")
+    if dbox > 0.05:
+        raise AssertionError("int8 top boxes drift more than 0.05 of the frame from bf16")
+
+    with torch.inference_mode():
+        turns = [_cuda_ms(lambda: p.run_model(images), reps=20)
+                 for p in (pipe, qpipe, qpipe, pipe)]
+        _int8_profile(pipe, qpipe, images)
+    print(f"forward, B = {BATCH}, CUDA events over 20 eager calls (the host's launch gaps "
+          f"included), in turns (bf16, int8, int8, bf16): "
+          + ", ".join(f"{t:.3f}" for t in turns) + " ms")
+    return qpipe
+
+
+def _eval_lanes(lanes, kernels) -> None:
+    """Phase 12: the eval CLI's lane in memory, batch 1 an image, for each
+    pipeline: launches, ``create_detections_df``'s matching rows and the
+    COCO AP of ``evaluate_model`` against ``plate_boxes``; then the
+    staging rings alive."""
+    import torch
+    from vbt_tpu_torch.cli.eval import detection_rows, image_detections
+    from vbt_tpu_torch.io.synthetic import plate_boxes, plate_frames
+    from vbt_tpu_torch.runtime.pipeline import MAX_RINGS
+    from vbt_tpu_torch.train.coco_eval import coco_metrics
+    from vbt_tpu_torch.train.evaluate import detect_images
+
+    sizes = ((240, 320), (360, 480), (288, 512), (480, 640), (720, 1280))
+    images, truth = {}, {}
+    for h, w in sizes:
+        for i, (img, box) in enumerate(zip(plate_frames(3, h, w, seed=h + w, period=5),
+                                           plate_boxes(3, h, w, period=5))):
+            images[f"plate_{h}x{w}_{i}"], truth[f"plate_{h}x{w}_{i}"] = img, box[None]
+    for lane, pipe in lanes.items():
+        image_detections(pipe, images[next(iter(images))])  # first launches of batch 1
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        dets = {name: image_detections(pipe, img) for name, img in images.items()}
+        scores, _, ious = detection_rows(truth, {lane: dets})
+        metrics = coco_metrics(detect_images(pipe, list(images.values())), list(truth.values()))
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        want = {"nms": 2 * len(images), "fused_mbconv": 0, "track_scan": 0, "analysis_scan": 0}
+        if launches != want:
+            raise AssertionError(f"eval [{lane}]: launches {launches}, want {want}")
+        best = np.array([iou for iou in ious if iou > 0])
+        print(f"eval [{lane}]: {len(images)} images at {len(sizes)} sizes, batch 1, twice "
+              f"({wall:.2f} s, launches {launches}); {len(scores)} matched rows, "
+              f"{len(best)} with IoU > 0 (mean {best.mean():.4f}); AP {metrics['AP']:.4f} "
+              f"AP50 {metrics['AP50']:.4f} AP75 {metrics['AP75']:.4f}")
+        if not (len(best) == len(images) and metrics["AP50"] > 0.9):
+            raise AssertionError(f"eval [{lane}]: the plate is not found in every image: "
+                                 f"{metrics}")
+    alive = {lane: len(pipe.rings) for lane, pipe in lanes.items()}
+    print(f"eval: staging rings alive {alive} (bound {MAX_RINGS})")
+    if max(alive.values()) > MAX_RINGS:
+        raise AssertionError(f"staging rings {alive} exceed {MAX_RINGS}")
 
 
 def _host_s(fn) -> float:

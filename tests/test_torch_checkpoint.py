@@ -109,8 +109,12 @@ def test_load_into_rejects_mismatch(raw_bytes):
 def test_convert_rejects_unknown_leaf():
     with pytest.raises(KeyError):
         convert_flax_variables({"params": {"x": {"weird": np.zeros(2, np.float32)}}})
+    # "quant" is a known collection now (a calibrated pipeline's act_scale
+    # leaves); any other collection, or another leaf in it, is refused.
     with pytest.raises(KeyError):
-        convert_flax_variables({"quant": {}})
+        convert_flax_variables({"intermediates": {}})
+    with pytest.raises(KeyError):
+        convert_flax_variables({"quant": {"backbone": {"stem": {"kernel": np.zeros(())}}}})
 
 
 @pytest.mark.parametrize("size", [320, 384, 448])

@@ -26,7 +26,11 @@ the same bounds (covariances relative to 1 + |want|), integer fields
 exact; the time-shard relay over one card equal to one launch. The analysis
 scan K4 (float64, ``--fmad=false``) against its plain version: events and
 carries within 1e-12 relative (the same operations in the same order;
-measured bit for bit, on the card and in the CPU build).
+measured bit for bit, on the card and in the CPU build). The int8 lane's
+products (``torch._int_mm`` after the zero-padding rule) against the plain
+version on CPU copies: bit for bit, int32 accumulators; the int8 lane's top
+boxes within 0.05 of the frame of the bf16 lane's (the bound the bf16 lane
+is held to against float32).
 """
 
 import os
@@ -547,3 +551,84 @@ def test_streaming_pipeline_on_the_card_equals_cpu(dev):
     for a, b in zip(got, want):
         assert (a.time_start, a.time_end) == (b.time_start, b.time_end)
         assert a.rom == pytest.approx(b.rom, rel=1e-9)
+
+
+def _lite0_int8(dev):
+    from vbt_tpu_torch.io.synthetic import plate_frames
+    from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
+
+    pipe = DetectionPipeline.from_model_arg(CKPT, device=dev)
+    frames = plate_frames(8, 240, 320, seed=3)
+    return pipe, pipe.calibrate(frames), frames
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_int8_products_on_the_card_equal_plain(dev, batch):
+    """Every distinct int8 product of lite0 at 320 (the stem's k = 27, the
+    heads' n = 9 and 36, P7's m = 9 at batch 1), captured in the forward."""
+    from vbt_tpu_torch.models import quant as q
+    from vbt_tpu_torch.ops.preprocess import preprocess_frames
+
+    pipe, qpipe, frames = _lite0_int8(dev)
+    seen, launch = {}, q.int8_conv
+
+    def capture(x_q, w_q, stride):
+        seen.setdefault((tuple(x_q.shape), tuple(w_q.shape), stride), (x_q, w_q, stride))
+        return launch(x_q, w_q, stride)
+
+    q.int8_conv = capture
+    try:
+        with torch.inference_mode():
+            x = torch.from_numpy(frames[:batch]).to(dev)
+            qpipe.run_model(preprocess_frames(x, 320, qpipe.dtype))
+    finally:
+        q.int8_conv = launch
+    shapes = {q.gemm_shape(xs, ws, s) for xs, ws, s in seen}
+    assert any(k == 27 for _, k, _ in shapes) and {9, 36} <= {n for _, _, n in shapes}
+    assert (min(m for m, _, _ in shapes) == 9) == (batch == 1)
+    for x_q, w_q, stride in seen.values():
+        got = q.int8_conv(x_q, w_q, stride)
+        assert got.device.type == "cuda" and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), q.int8_conv_plain(x_q.cpu(), w_q.cpu(), stride))
+
+
+def test_int8_lane_on_the_card(dev):
+    """Calibrated lite0: every dense conv through ``_int_mm``, NMS through
+    the kernel, the top boxes near the bf16 lane's, the scales float32."""
+    from vbt_tpu_torch.models import quant as q
+    from vbt_tpu_torch.ops.nms_cuda import nms
+
+    pipe, qpipe, frames = _lite0_int8(dev)
+    assert qpipe.dtype == torch.bfloat16 and qpipe.model.backbone.stem.act_scale.dtype == torch.float32
+    q.int8_matmul.calls, nms.launches = 0, 0
+    got, want = qpipe.detect_batch(frames), pipe.detect_batch(frames)
+    # One forward of each lane: the int8 products are the int8 lane's alone.
+    assert q.int8_matmul.calls >= len(q.dense_convs(qpipe.model)) and nms.launches == 2
+    assert torch.equal(got.count, want.count)
+    assert (got.boxes[:, 0] - want.boxes[:, 0]).abs().max().item() <= 0.05
+    with pytest.raises(ValueError):
+        q.int8_conv(torch.zeros(1, 8, 2, 2, device=dev), qpipe.model.backbone.stem.w_int8, 1)
+
+
+def test_eval_lane_on_the_card(dev):
+    """Images of three sizes, batch 1, through the eval CLI's matching and
+    the COCO AP; the staging rings stay within their bound."""
+    from vbt_tpu_torch.cli.eval import detection_rows, image_detections
+    from vbt_tpu_torch.io.synthetic import plate_boxes, plate_frames
+    from vbt_tpu_torch.ops.nms_cuda import nms
+    from vbt_tpu_torch.runtime.pipeline import MAX_RINGS, DetectionPipeline
+    from vbt_tpu_torch.train.coco_eval import coco_metrics
+    from vbt_tpu_torch.train.evaluate import detect_images
+
+    pipe = DetectionPipeline.from_model_arg(CKPT, device=dev)
+    images, truth = [], []
+    for h, w in ((240, 320), (360, 480), (288, 512), (480, 640), (720, 1280)):
+        images += list(plate_frames(2, h, w, seed=h, period=5))
+        truth += [b[None] for b in plate_boxes(2, h, w, period=5)]
+    nms.launches = 0
+    dets = {str(i): image_detections(pipe, img) for i, img in enumerate(images)}
+    _, _, ious = detection_rows({str(i): t for i, t in enumerate(truth)}, {"lite0": dets})
+    metrics = coco_metrics(detect_images(pipe, images), truth)
+    assert nms.launches == 2 * len(images)
+    assert sum(iou > 0.5 for iou in ious) == len(images) and metrics["AP50"] > 0.9
+    assert len(pipe.rings) <= MAX_RINGS

@@ -7,7 +7,9 @@ native Jonker-Volgenant solver (``vbt_tpu/native/csrc/hostops.cpp``), so
 the two agree exactly, ties included, where several assignments are
 optimal; scipy's solver picks other optima on such costs. The host OC-SORT
 meets such ties when a frame holds the same box twice; its outputs are
-compared exactly, frame by frame.
+compared exactly, frame by frame. The native solver comes from
+``torch_hostops.native_hostops``, which builds it when the JAX package's own
+in-place build did not (concurrent first imports can leave it out).
 """
 
 import numpy as np
@@ -15,7 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from vbt_tpu.native import hostops  # noqa: E402
+from torch_hostops import native_hostops  # noqa: E402,F401
 from vbt_tpu.tracking import OCSort as JaxOCSort  # noqa: E402
 from vbt_tpu.tracking.assignment import linear_assignment as jax_linear_assignment  # noqa: E402
 from vbt_tpu_torch.tracking import OCSort  # noqa: E402
@@ -23,9 +25,8 @@ from vbt_tpu_torch.tracking.assignment import linear_assignment  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
-def native_solver():
-    if hostops is None:
-        pytest.skip("the JAX package's native solver is not built here (no compiler)")
+def native_solver(native_hostops):
+    """The JAX host lane on the native JV solver, never scipy."""
 
 
 @pytest.mark.parametrize("kind", ["ties", "continuous", "tracker"])

@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``vbt_tpu_torch`` loads
 no ``jax``, ``flax`` or ``vbt_tpu`` module, nor the optional host packages
-(cv2, pandas, click, matplotlib, seaborn) that ``chip_smoke.py`` runs
-without; and a CUDA request
+(cv2, pandas, click, matplotlib, seaborn, sklearn) that ``chip_smoke.py``
+runs without; and a CUDA request
 on a machine without a card raises instead of falling back to the CPU."""
 
 import os
@@ -22,7 +22,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "vbt_tpu", "cv2", "pandas", "click",
-                                    "matplotlib", "seaborn"))
+                                    "matplotlib", "seaborn", "sklearn"))
 print(len(names))
 print(",".join(bad))
 print(",".join(names))
@@ -38,7 +38,8 @@ def test_import_loads_no_jax_or_reference_package():
     for module in ("analysis.velocity_torch", "cli.plot", "ops.track_scan_cuda",
                    "runtime.batch_runner", "runtime.upload", "tracking.scan",
                    "analysis.smoother_scan", "ops.analysis_scan_cuda", "runtime.streaming",
-                   "cli.stream", "parallel.mesh", "parallel.time_shard"):
+                   "cli.stream", "parallel.mesh", "parallel.time_shard", "models.quant",
+                   "contract.parsers", "train.coco_eval", "train.evaluate", "cli.eval"):
         assert f"vbt_tpu_torch.{module}" in names.split(","), module
     assert bad == "", f"port imported {bad}"
 

@@ -1,1 +1,2 @@
-"""The tracking dataframe contract (schema, filename grammar)."""
+"""The tracking dataframe contract (schema, filename grammar) and the
+ground-truth parsers."""

@@ -7,6 +7,9 @@ drives detection and tracking end to end without video files or OpenCV:
 ``chip_smoke.py`` feeds its frames straight to the pipeline, and the tests
 write them to a video.
 
+:func:`plate_boxes` is the disc's analytic box in each of those frames,
+the ground truth of the detector's evaluation on them.
+
 :func:`plate_detections` and :func:`crossing_detections` are tracker
 inputs without a detector: per-frame detection rows of plates moving up
 and down side by side (with misses, dropout and jitter; the scenes of
@@ -46,6 +49,16 @@ def plate_frames(n: int, height: int, width: int, seed: int = 0,
         img[d <= 0.12 * r] = 220
         out[t] = img
     return out
+
+
+def plate_boxes(n: int, height: int, width: int, period: int = 32) -> np.ndarray:
+    """The disc's box ``[cy - r, cx - r, cy + r, cx + r]`` in pixels (float64)
+    in each of the ``n`` frames :func:`plate_frames` draws at this size."""
+    t = np.arange(n)
+    cy = height * (0.5 + PLATE_AMPLITUDE * np.sin(2 * np.pi * t / period))
+    cx = np.full(n, width / 2)
+    r = PLATE_RADIUS * height
+    return np.stack([cy - r, cx - r, cy + r, cx + r], axis=1)
 
 
 def pad_detections(frames: list[np.ndarray], d_cap: int) -> tuple[np.ndarray, np.ndarray]:

@@ -1,11 +1,13 @@
 """Convolution and BatchNorm with the JAX package's numerics.
 
-:class:`Conv2dSame` is the float ("off" quant mode) counterpart of
-``vbt_tpu.models.quant.QuantConv``: a 2-D convolution with XLA's SAME
-padding, NCHW activations and an OIHW weight. XLA's SAME padding is
-asymmetric for stride 2 (``pad_lo = total // 2``, the extra pixel on the
-high side), which a symmetric ``Conv2d(padding=...)`` cannot express, so
-those cases pad explicitly with ``F.pad``. int8 is a later slice.
+:class:`Conv2dSame` is the counterpart of ``vbt_tpu.models.quant.QuantConv``:
+a 2-D convolution with XLA's SAME padding, NCHW activations and an OIHW
+weight. XLA's SAME padding is asymmetric for stride 2 (``pad_lo = total //
+2``, the extra pixel on the high side), which a symmetric
+``Conv2d(padding=...)`` cannot express, so those cases pad explicitly with
+``F.pad``. A dense conv (``groups == 1``) also runs the quant modes of
+:mod:`vbt_tpu_torch.models.quant`; its float ("off") path is the plain
+convolution, unchanged.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from vbt_tpu_torch.models import quant as q
 
 BN_EPS = 1e-3  # EfficientNet/flax BatchNorm epsilon used throughout
 
@@ -48,7 +52,11 @@ class Conv2dSame(nn.Module):
 
     Parameters: ``weight`` (out, in // groups, k, k) and optional ``bias``.
     They are filled from a checkpoint (``runtime.checkpoint``), never
-    randomly initialised on the serving path.
+    randomly initialised on the serving path. A dense conv has the buffer
+    ``act_scale`` (``None`` until calibrated or loaded) and a ``quant``
+    mode: ``"calibrate"`` records the running max of ``|x|`` on the float
+    path, ``"int8"`` quantizes ``x`` with it and runs the int8 product on
+    the weights :func:`quant.freeze_int8` made.
     """
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
@@ -57,9 +65,27 @@ class Conv2dSame(nn.Module):
         self.kernel, self.stride, self.groups = kernel, stride, groups
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kernel, kernel))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+        self.quant = q.OFF
+        if groups == 1:
+            self.register_buffer("act_scale", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.quant == q.INT8:
+            return self._int8(x)
+        if self.quant == q.CALIBRATE:
+            m = x.detach().abs().amax().float()
+            self.act_scale = m if self.act_scale is None else torch.maximum(self.act_scale, m)
         return conv2d_same(x, self.weight, self.bias, self.stride, self.groups)
+
+    def _int8(self, x: torch.Tensor) -> torch.Tensor:
+        if self.act_scale is None or getattr(self, "w_int8", None) is None:
+            raise ValueError("int8 mode requires a calibrated act_scale and frozen int8 "
+                             "weights (quant.set_mode(model, 'int8'))")
+        s_in = q.input_scale(self.act_scale)
+        x_q = pad_same(q.quantize(x, s_in), self.kernel, self.stride)
+        acc = q.int8_conv(x_q, self.w_int8, self.stride)
+        out = q.dequantize(acc, s_in, self.w_scale, x.dtype)
+        return out if self.bias is None else out + self.bias.view(1, -1, 1, 1)
 
 
 class BatchNorm(nn.Module):

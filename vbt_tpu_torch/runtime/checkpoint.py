@@ -11,7 +11,9 @@ for a numpy scalar, stored as a 0-d array).
 ``state_dict``: ``kernel`` -> ``weight`` (HWIO and depthwise ``(kh, kw, 1,
 C)`` both become OIHW by ``transpose(3, 2, 0, 1)``), BN ``scale`` ->
 ``weight``, ``mean``/``var`` -> ``running_mean``/``running_var``, and the
-flax auto-name ``BatchNorm_0`` -> ``bn``.
+flax auto-name ``BatchNorm_0`` -> ``bn``. A calibrated pipeline's ``quant``
+collection carries one ``act_scale`` leaf per dense conv; each becomes that
+conv's ``act_scale`` buffer (a float32 scalar).
 """
 
 from __future__ import annotations
@@ -125,18 +127,21 @@ _LEAF_NAMES = {
     ("params", "scale"): "weight",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
+    ("quant", "act_scale"): "act_scale",
 }
+_COLLECTIONS = ("params", "batch_stats", "quant")
 
 
 def convert_flax_variables(variables: dict) -> "OrderedDict[str, torch.Tensor]":
-    """Nested flax variables (``params`` + ``batch_stats``, numpy leaves)
-    -> a torch ``state_dict`` for :class:`EfficientDet`. Raises on an
-    unknown collection or leaf name, or on two leaves mapping to one key."""
+    """Nested flax variables (``params``, ``batch_stats`` and optionally
+    ``quant``, numpy leaves) -> a torch ``state_dict`` for
+    :class:`EfficientDet`. Raises on an unknown collection or leaf name, or
+    on two leaves mapping to one key."""
     out: OrderedDict[str, torch.Tensor] = OrderedDict()
-    unknown = set(variables) - {"params", "batch_stats"}
+    unknown = set(variables) - set(_COLLECTIONS)
     if unknown:
         raise KeyError(f"unexpected variable collections {sorted(unknown)}")
-    for collection in ("params", "batch_stats"):
+    for collection in _COLLECTIONS:
         for path, arr in _leaves(variables.get(collection, {})):
             leaf = _LEAF_NAMES.get((collection, path[-1]))
             if leaf is None:
@@ -148,7 +153,8 @@ def convert_flax_variables(variables: dict) -> "OrderedDict[str, torch.Tensor]":
             arr = np.asarray(arr)
             if leaf == "weight" and arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+            # ascontiguousarray makes a 0-d scale 1-d: keep the leaf's shape.
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
     return out
 
 

@@ -11,7 +11,9 @@ Uploads go through a ring of pinned staging buffers per batch shape
 copy stream and the forward waits for it on the device, not the host. The
 video reader decodes straight into a buffer the pipeline lends it
 (:meth:`DetectionPipeline.lend_frames`); any other numpy batch is copied
-into a staging buffer first.
+into a staging buffer first. The pipeline keeps the rings of the
+``MAX_RINGS`` batch shapes used last: evaluation feeds every image at its
+own size, and each ring pins three buffers.
 
 Serving policy (:func:`serving_config`): on CUDA, bf16 with the NMS kernel
 (``use_kernel``, always for a single-class model); on the CPU, f32 with
@@ -21,16 +23,25 @@ XLA path on the CPU.
 ``backbone="turbo"`` runs the backbone as :class:`TurboBackbone` (fused
 MBConv blocks: the CUDA kernel on the card, its plain version on the CPU)
 instead of the module's convolutions; the rest of the path is the same.
+
+``quant="int8"`` runs every dense convolution in int8
+(:mod:`vbt_tpu_torch.models.quant`) with the activation scales of a prior
+:meth:`DetectionPipeline.calibrate`, the stand-in for the reference's
+post-training-int8 TFLite artifact. As in the JAX package, int8 needs the
+``"xla"`` backbone (the fused blocks have no int8 path) and calibrated
+scales; both refusals raise.
 """
 
 from __future__ import annotations
 
 import os
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from vbt_tpu_torch.models import EfficientDet, ModelSpec, get_model_spec
+from vbt_tpu_torch.models import quant as q
 from vbt_tpu_torch.models.anchors import generate_anchors
 from vbt_tpu_torch.models.turbo import TurboBackbone, turbo_forward
 from vbt_tpu_torch.ops.nms_cuda import detection_postprocess_cuda
@@ -42,6 +53,8 @@ from vbt_tpu_torch.utils.device import resolve_device, serving_dtype
 
 MAX_DETECTIONS = 25  # the TFLite postprocess contract
 BACKBONES = ("xla", "turbo")  # the JAX package's names: module convolutions, fused blocks
+QUANT = (q.OFF, q.INT8)
+MAX_RINGS = 4  # staging rings (batch shapes) a pipeline keeps
 
 
 def serving_config(device: str | torch.device = "cuda") -> tuple[torch.device, torch.dtype]:
@@ -66,27 +79,42 @@ def resolve_model(model: str) -> tuple[ModelSpec, str | None]:
 
 
 class DetectionPipeline:
-    """A model with its weights resident on one device, and batch detection."""
+    """A model with its weights resident on one device, and batch detection.
+
+    ``state_dict`` is the float32 state (as :func:`load_checkpoint` gives
+    it, with ``<conv>.act_scale`` entries for an int8 pipeline); the
+    pipeline keeps it as ``weights`` for :meth:`calibrate`."""
 
     def __init__(self, spec: ModelSpec, state_dict: dict,
                  device: str | torch.device = "cuda", dtype: torch.dtype | None = None,
-                 backbone: str = "xla"):
+                 backbone: str = "xla", quant: str = q.OFF):
         if backbone not in BACKBONES:
             raise ValueError(f"backbone must be one of {BACKBONES}, got {backbone!r}")
+        if quant not in QUANT:
+            raise ValueError(f"quant must be one of {QUANT}, got {quant!r}")
+        if backbone != "xla" and quant != q.OFF:
+            # The fused blocks have no int8 path: the pipeline would serve
+            # float while it reports quant='int8' (the JAX package's refusal).
+            raise ValueError(f"quant={quant!r} requires backbone='xla', got backbone={backbone!r}")
         self.spec = spec
+        self.quant = quant
+        self.weights = state_dict
         self.device, default_dtype = serving_config(device)
         self.dtype = default_dtype if dtype is None else dtype
         # The NMS kernel is single-class; every shipped model has one class.
         self.use_kernel = self.device.type == "cuda" and spec.num_classes == 1
         model = EfficientDet(spec)
+        q.make_room_for_scales(model, state_dict)
         load_into(model, state_dict)
+        if quant == q.INT8:
+            q.set_mode(model, q.INT8)  # quantizes the f32 weights, before the cast
         # Folded from the f32 weights, before the model is cast to the working dtype.
         self.turbo = (TurboBackbone(model.backbone, (spec.input_size, spec.input_size),
                                     self.dtype, self.device)
                       if backbone == "turbo" else None)
-        self.model = model.eval().to(device=self.device, dtype=self.dtype)
+        self.model = q.cast_model(model.eval(), self.device, self.dtype)
         self.anchors = torch.from_numpy(generate_anchors(spec.anchor_config)).to(self.device)
-        self.rings: dict[tuple[int, ...], StagingRing] = {}
+        self.rings: OrderedDict[tuple[int, ...], StagingRing] = OrderedDict()
 
     @classmethod
     def from_model_arg(cls, model: str, device: str | torch.device = "cuda",
@@ -101,11 +129,17 @@ class DetectionPipeline:
 
     # -- upload -----------------------------------------------------------------
     def staging(self, shape: tuple[int, ...]) -> StagingRing:
-        """The staging ring of one batch shape, made at first use."""
+        """The staging ring of one batch shape, made at first use. Beyond
+        ``MAX_RINGS`` shapes the ring used longest ago is closed (after its
+        copies have completed) and dropped."""
         shape = tuple(shape)
-        if shape not in self.rings:
-            self.rings[shape] = StagingRing(shape, self.device)
-        return self.rings[shape]
+        if shape in self.rings:
+            self.rings.move_to_end(shape)
+            return self.rings[shape]
+        while len(self.rings) >= MAX_RINGS:
+            self.rings.popitem(last=False)[1].close()
+        ring = self.rings[shape] = StagingRing(shape, self.device)
+        return ring
 
     def lend_frames(self, shape: tuple[int, ...]) -> np.ndarray:
         """A staging buffer of ``shape`` for the caller to fill with a uint8
@@ -137,6 +171,23 @@ class DetectionPipeline:
         if self.turbo is not None:
             return turbo_forward(self.model, self.turbo, images)
         return self.model(images)
+
+    # -- int8 -----------------------------------------------------------------
+
+    def calibrate(self, frames) -> "DetectionPipeline":
+        """Record every dense conv's activation scale over the uint8 frames
+        (B, H, W, 3), preprocessed as :meth:`detect_batch` does and run in
+        the working dtype, and return a new pipeline serving int8 with them."""
+        if self.turbo is not None:
+            raise ValueError("int8 calibration requires the 'xla' backbone, not 'turbo': the "
+                             "fused blocks have no int8 path")
+        with torch.inference_mode():
+            images = preprocess_frames(self._frames(frames), self.spec.input_size, self.dtype)
+            scales = q.calibrate(self.model, [images])
+        state = dict(self.weights)
+        state.update({k: v.to(device="cpu", dtype=torch.float32) for k, v in scales.items()})
+        return DetectionPipeline(self.spec, state, device=self.device, dtype=self.dtype,
+                                 quant=q.INT8)
 
     @torch.inference_mode()
     def postprocess(self, deltas: torch.Tensor, logits: torch.Tensor,

@@ -17,7 +17,8 @@ few pinned host buffers of one batch shape instead:
   compute that reads it has finished.
 
 On the CPU the same protocol runs on ordinary memory, without streams: an
-upload is a copy, complete when it returns.
+upload is a copy, complete when it returns. :meth:`StagingRing.close`
+waits for the ring's last copies and lets its buffers go.
 """
 
 from __future__ import annotations
@@ -43,6 +44,17 @@ class StagingRing:
         self.copied: list[torch.cuda.Event | None] = [None] * depth  # last copy of each buffer
         self.lent = [False] * depth
         self.next = 0
+
+    def close(self) -> None:
+        """Wait for every copy out of the ring, then drop its buffers (a
+        pinned buffer is freed while no copy reads it). A buffer still lent
+        stays alive through the caller's array; uploading it later copies it
+        into another ring."""
+        for event in self.copied:
+            if event is not None:
+                event.synchronize()
+        self.buffers, self._arrays = [], []
+        self.copied, self.lent = [], []
 
     def index_of(self, frames: np.ndarray) -> int | None:
         """The buffer ``frames`` is (the same memory and shape), else None."""
