@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's track and stream paths on one CUDA card, check them, time them.
+"""Drive the PyTorch/CUDA port's track, stream and train paths on one CUDA card; check, time them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 card and ``nvcc``; without a card it exits with code 2 and prints no result.
@@ -96,7 +96,26 @@ Phases, each of which raises on failure:
    once an image): ``create_detections_df``'s matching of each image's
    detections to the analytic ``plate_boxes`` and ``evaluate_model``'s COCO
    AP, AP50 and AP75, printed for both lanes; the staging rings alive at the
-   end, within ``MAX_RINGS``.
+   end, within ``MAX_RINGS``;
+13. training, EfficientDet-Lite0 at 320 in float32 from the port's own
+   initialization: (a) one batch augmented with the same draws on the card
+   and on the CPU, then two train steps on the card against the same on CPU
+   copies from one state, in float32 (each device's batch) and in float64
+   (the CPU's batch), within ``TRAIN_BOUNDS`` (each group's largest
+   difference over its bound printed);
+   (b) ``DeviceDataTrainer`` from scratch on 64 synthetic plate images,
+   B = 32, 30 steps with mosaic: the mean loss of the last 5 steps below
+   that of the first 5, and the validation loss; (c) heads-only from the
+   shipped ``efficientdet_lite0_whole.msgpack`` as donor: backbone and BiFPN
+   parameters and statistics bit for bit the donor's after 6 steps; (d)
+   ``save_train_checkpoint`` -> ``load_train_checkpoint`` bit for bit, then
+   the raw and the EMA parameters of (b) through ``DetectionPipeline`` on 40
+   held-out images (batches of 32 as ``evaluate_model`` feeds them: NMS once
+   a batch, counted), their AP, and the export reloaded from its file giving
+   the same detections; (e) the fused step's and the augmentation's time
+   (CUDA events), images/s and the peak memory, beside the card's name and
+   power limit, and the step's device busy time split by part
+   (``torch.profiler``).
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -154,6 +173,23 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12  # FP64 outside the tensor cores (NVIDIA data sheet, H100 SXM)
 BF16_TENSOR_OPS_PER_S = 989e12
+# Phase 13 (training).
+TRAIN_SIZE, TRAIN_BATCH, TRAIN_STEPS, TRAIN_IMAGES = 320, 32, 30, 64
+STEP_CHECK_BATCH = 8
+# Two train steps, card against CPU, in float32 and in float64: (loss and
+# running statistics relative, trace relative to its largest value, absolute
+# floor). The trace (the clipped gradient) is the ill-conditioned part:
+# train-mode BatchNorm makes float32 gradients differ by percents between
+# two correct implementations (on the CPU, JAX's own float32 gradients
+# differ from its float64 ones by 10-20% of a leaf's largest value at
+# 64-128 px, tests/test_torch_train_step.py), and cuDNN's backward sums in
+# its own order; float64 shows whether the card computes the same step.
+# Parameters and EMA move by lr * trace in the second step (lr(0) = 0), so
+# their bound is the floor plus lr times the trace's. The augmented batch:
+# images within 1e-3, boxes within 1e-4, valid exact.
+TRAIN_BOUNDS = {"float32": (1e-4, 5e-2, 1e-5), "float64": (1e-9, 1e-7, 1e-12)}
+TRAIN_CHECK_LR = 0.01
+FREEZE = ("backbone", "fpn")
 
 
 def _nvidia_smi() -> str:
@@ -1049,6 +1085,8 @@ def main(argv=None) -> int:
     qpipe = _int8_lane(pipe, frames, kernels, xla)
     # 12. Evaluation, batch 1 an image, both lanes.
     _eval_lanes({"bf16": pipe, "int8": qpipe}, kernels)
+    # 13. Training.
+    records[0]["train_launches"] = _train_phase(kernels)
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1385,10 +1423,16 @@ def _int8_products(qpipe, images) -> dict:
 
 
 def _forward_profile(pipe, images, labels=(), reps: int = 3) -> tuple[float, dict]:
-    """``torch.profiler`` over ``reps`` forwards of ``images``: the device's
-    busy time a forward in us (the union of its kernels' spans), and for
-    each ``record_function`` label the time a forward of the kernels
-    launched inside it (the host-side range's ops and their kernels; the
+    """``torch.profiler`` over ``reps`` forwards of ``images``: see
+    :func:`_device_profile`."""
+    return _device_profile(lambda: pipe.run_model(images), labels, reps)
+
+
+def _device_profile(fn, labels=(), reps: int = 3) -> tuple[float, dict]:
+    """``torch.profiler`` over ``reps`` calls of ``fn``: the device's busy
+    time a call in us (the union of its kernels' spans), and for each
+    ``record_function`` label the time a call of the kernels launched
+    inside it (the host-side range's ops and their kernels; the
     device-side range of the same name spans the gaps between them too, so
     it is left out of both)."""
     import torch
@@ -1397,7 +1441,7 @@ def _forward_profile(pipe, images, labels=(), reps: int = 3) -> tuple[float, dic
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            pipe.run_model(images)
+            fn()
         torch.cuda.synchronize()
     cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -1553,6 +1597,264 @@ def _eval_lanes(lanes, kernels) -> None:
     print(f"eval: staging rings alive {alive} (bound {MAX_RINGS})")
     if max(alive.values()) > MAX_RINGS:
         raise AssertionError(f"staging rings {alive} exceed {MAX_RINGS}")
+
+
+def _train_data(n: int, seed: int):
+    """``n`` synthetic 320x320 plate images with their analytic boxes, padded
+    to 16 rows as ``load_voc_dataset`` pads."""
+    from vbt_tpu_torch.io.synthetic import plate_boxes, plate_frames
+    from vbt_tpu_torch.train.data import DetectionDataset
+
+    boxes, valid = np.zeros((n, 16, 4), np.float32), np.zeros((n, 16), bool)
+    boxes[:, 0], valid[:, 0] = plate_boxes(n, TRAIN_SIZE, TRAIN_SIZE, period=PERIOD), True
+    return DetectionDataset(plate_frames(n, TRAIN_SIZE, TRAIN_SIZE, seed=seed, period=PERIOD),
+                            boxes, valid, [f"plate_{seed}_{i}" for i in range(n)])
+
+
+def _step_ratios(cpu, card, bounds) -> dict:
+    """Each group's largest card-against-CPU difference over its bound
+    (``TRAIN_BOUNDS``); 1 is the bound."""
+    rtol, trace_rtol, atol = bounds
+    trace_max = max(float(t.abs().max()) for t in cpu.opt_state.trace.values())
+
+    def worst(name, bound):
+        want, got = getattr(cpu, name), getattr(card, name)
+        if name == "opt_state":
+            want, got = want.trace, got.trace
+        return max(float((got[k].cpu().double() - w.double()).abs().max()) / bound(w)
+                   for k, w in want.items())
+
+    moved = lambda w: atol + TRAIN_CHECK_LR * trace_rtol * trace_max  # noqa: E731
+    return {"params": worst("params", moved), "ema_params": worst("ema_params", moved),
+            "batch_stats": worst("batch_stats", lambda w: atol + rtol * float(w.abs().max())),
+            "trace": worst("opt_state", lambda w: trace_rtol * trace_max)}
+
+
+def _hold_train_step(spec) -> None:
+    """Phase 13 (a): two train steps on the card against CPU copies, float32
+    on each device's own augmentation of one batch, then float64 on the
+    CPU's."""
+    import torch
+    from vbt_tpu_torch.train.augment import augment_mosaic_and_normalize, draw_mosaic
+    from vbt_tpu_torch.train.train_step import Trainer
+
+    data = _train_data(STEP_CHECK_BATCH, seed=3)
+    draws = draw_mosaic(torch.Generator().manual_seed(0), STEP_CHECK_BATCH, TRAIN_SIZE)
+    batches = {}
+    for device in ("cpu", "cuda"):
+        on = lambda t: None if t is None else t.to(device)  # noqa: E731
+        batches[device] = dict(zip(("images", "gt_boxes", "gt_valid"), augment_mosaic_and_normalize(
+            *(torch.from_numpy(a).to(device) for a in (data.images, data.boxes, data.valid)),
+            type(draws)(*map(on, draws)))))
+    cb, gb = batches["cpu"], batches["cuda"]
+    img_err = float((gb["images"].cpu() - cb["images"]).abs().max())
+    box_err = float((gb["gt_boxes"].cpu() - cb["gt_boxes"]).abs().max())
+    same_valid = torch.equal(gb["gt_valid"].cpu(), cb["gt_valid"])
+    print(f"train augmentation, B = {STEP_CHECK_BATCH}, the same draws, card against CPU: "
+          f"images {img_err:.3g}, boxes {box_err:.3g}, valid {'equal' if same_valid else 'DIFFER'}")
+    ok = img_err <= 1e-3 and box_err <= 1e-4 and same_valid
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[-1]
+        runs = {}
+        for device in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            trainer = Trainer(spec, base_lr=TRAIN_CHECK_LR, total_steps=10, warmup_steps=1,
+                              input_size=TRAIN_SIZE, dtype=dtype, device=device)
+            state = trainer.init_state(seed=0)
+            batch = {k: v.to(device) for k, v in
+                     (batches[device] if dtype == torch.float32 else cb).items()}
+            losses = []
+            for _ in range(2):
+                state, metrics = trainer.train_step(state, batch)
+                losses.append(float(metrics["loss"]))
+            runs[device] = (losses, state, time.perf_counter() - t0)
+        (closs, cpu, cpu_s), (gloss, card, card_s) = runs["cpu"], runs["cuda"]
+        loss_rel = max(abs(g - c) / abs(c) for g, c in zip(gloss, closs))
+        ratios = _step_ratios(cpu, card, TRAIN_BOUNDS[name])
+        print(f"train step, lite0 {TRAIN_SIZE}, B = {STEP_CHECK_BATCH}, {name}, card against CPU "
+              f"(CPU {cpu_s:.1f} s, card {card_s:.1f} s for 2 steps): losses {closs} / {gloss} "
+              f"(max rel {loss_rel:.3g}); largest difference over its bound "
+              f"{TRAIN_BOUNDS[name]}: " + ", ".join(f"{k} {v:.3g}" for k, v in ratios.items()))
+        ok = ok and loss_rel <= TRAIN_BOUNDS[name][0] and max(ratios.values()) <= 1
+    if not ok:
+        raise AssertionError("train step: the card disagrees with the CPU beyond the bounds")
+
+
+def _train_profile(ddt, state, idx, gen, step_ms) -> None:
+    """Phase 13 (e): where a fused step's device time goes, and the device's
+    idle share of the step. Each part of the step runs inside a
+    ``record_function`` of its name (the functions are wrapped for the
+    profile and restored after it)."""
+    import torch
+    from torch.profiler import record_function
+    from vbt_tpu_torch.train import fused
+    from vbt_tpu_torch.train import train_step as ts
+
+    def labelled(name, fn):
+        def call(*args, **kw):
+            with record_function(name):
+                return fn(*args, **kw)
+        return call
+
+    # The backward's kernels are launched from autograd's own thread, outside
+    # any range of this one: they fall in "the rest".
+    patches = [(fused, "draw_mosaic", "augment"), (fused, "augment_mosaic_and_normalize",
+                                                   "augment"),
+               (ts, "assign_targets", "targets"), (ts, "functional_call", "forward"),
+               (ts, "detection_loss", "loss"), (ts.SGDChain, "update", "optimizer"),
+               (ts, "apply_updates", "optimizer")]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in patches]
+    for obj, attr, label in patches:
+        setattr(obj, attr, labelled(label, getattr(obj, attr)))
+    labels = ("augment", "targets", "forward", "loss", "optimizer")
+    try:
+        busy_us, parts = _device_profile(lambda: ddt.step(state, idx, gen, 0.5), labels)
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    if not busy_us:
+        print("train profile: the profiler recorded no device time (not measured)")
+        return
+    rest = busy_us - sum(parts.values())
+    print(f"train profile, mean of 3 fused steps (B = {idx.shape[0]}): device busy "
+          f"{busy_us / 1e3:.3f} ms of the {step_ms:.3f} ms step (idle share "
+          f"{1 - busy_us / 1e3 / step_ms:.3f}); by part: "
+          + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / busy_us:.1%})" for k, v in parts.items())
+          + f", the rest (the backward, the gather, the EMA) {rest / 1e3:.3f} ms "
+          f"({rest / busy_us:.1%})")
+
+
+def _train_phase(kernels) -> int:
+    """Phase 13: training (see the module docstring). Returns NMS launches
+    in the evaluation of the trained parameters."""
+    import torch
+    from vbt_tpu_torch.cli.train import donor_state
+    from vbt_tpu_torch.models import get_model_spec
+    from vbt_tpu_torch.runtime.checkpoint import (
+        latest_train_checkpoint,
+        load_checkpoint,
+        load_train_checkpoint,
+        save_params,
+        save_train_checkpoint,
+    )
+    from vbt_tpu_torch.train.coco_eval import coco_metrics
+    from vbt_tpu_torch.train.evaluate import EVAL_BATCH, detect_resized
+    from vbt_tpu_torch.train.fused import DeviceDataTrainer
+    from vbt_tpu_torch.train.train_step import Trainer
+
+    t_phase = time.perf_counter()
+    spec = get_model_spec("efficientdet_lite0_whole")
+    _hold_train_step(spec)
+
+    # (b) From scratch, the device-resident loop.
+    trainer = Trainer(spec, base_lr=0.08 * TRAIN_BATCH / 64, total_steps=TRAIN_STEPS,
+                      warmup_steps=max(TRAIN_STEPS // 20, 1), input_size=TRAIN_SIZE,
+                      device="cuda")
+    state = trainer.init_state(seed=0)
+    ddt = DeviceDataTrainer(trainer, _train_data(TRAIN_IMAGES, 0), _train_data(16, 1))
+    rng, gen = np.random.default_rng(0), torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = []
+    while len(metrics) < TRAIN_STEPS:
+        state, more, gen = ddt.epoch(state, rng, TRAIN_BATCH, gen,
+                                     max_batches=TRAIN_STEPS - len(metrics))
+        metrics += more
+    losses = torch.stack([m["loss"] for m in metrics]).cpu().numpy()  # one read back
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    val = ddt.val_loss(state)
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    print(f"train from scratch, lite0 {TRAIN_SIZE}, B = {TRAIN_BATCH}, {TRAIN_IMAGES} images "
+          f"resident, {len(losses)} fused steps (mosaic 0.5) in {wall:.2f} s: mean loss of the "
+          f"first 5 steps {first:.4f}, of the last 5 {last:.4f}; val_loss {val:.4f}; losses "
+          + " ".join(f"{v:.3f}" for v in losses))
+    if not (np.isfinite(losses).all() and np.isfinite(val) and last < first):
+        raise AssertionError(f"train from scratch: the loss did not fall ({first} -> {last})")
+
+    # (e) Time and memory of a fused step at B = 32.
+    idx = torch.arange(TRAIN_BATCH, device="cuda")
+    step_ms = _cuda_ms(lambda: ddt.step(state, idx, gen, 0.5), reps=10, warmup=2)
+    aug_ms = _cuda_ms(lambda: ddt.augment(idx, gen, 0.5), reps=10)
+    print(f"train step time ({_nvidia_smi()}): fused step {step_ms:.3f} ms "
+          f"({TRAIN_BATCH / step_ms * 1e3:.1f} images/s), of which augmentation {aug_ms:.3f} ms "
+          f"({aug_ms / step_ms:.1%}); peak memory {peak:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated, steps of (b))")
+
+    _train_profile(ddt, state, idx, gen, step_ms)
+
+    # (c) Heads-only from the shipped donor: frozen subtrees bit for bit.
+    heads = Trainer(spec, base_lr=0.01, total_steps=10, warmup_steps=1, freeze_top_keys=FREEZE,
+                    input_size=TRAIN_SIZE, device="cuda")
+    h_state = donor_state(heads, heads.init_state(seed=0), CKPT)
+    h_ddt = DeviceDataTrainer(heads, _train_data(TRAIN_IMAGES, 2))
+    h_gen = torch.Generator(device="cuda").manual_seed(1)
+    for _ in range(3):
+        h_state, _, h_gen = h_ddt.epoch(h_state, rng, TRAIN_BATCH, h_gen)
+    donor, got = load_checkpoint(CKPT), heads.variables(h_state)
+    frozen = [k for k in donor if k.split(".")[0] in FREEZE]
+    moved = sum(not torch.equal(got[k].cpu(), donor[k]) for k in donor if k not in frozen)
+    same = all(torch.equal(got[k].cpu(), donor[k]) for k in frozen)
+    print(f"heads-only from {os.path.basename(CKPT)}, {h_state.step} steps: {len(frozen)} "
+          f"backbone/BiFPN tensors {'bit for bit the donor' if same else 'CHANGED'}, "
+          f"{moved} of the heads' {len(donor) - len(frozen)} moved")
+    if not (same and moved):
+        raise AssertionError("heads-only: frozen subtrees changed or the heads did not train")
+
+    # (d) Checkpoint round trip, then export and evaluation through K1.
+    out = os.path.join(REPO, "out", "chip_smoke_train")
+    save_train_checkpoint(out, 1, state)
+    back = load_train_checkpoint(out, latest_train_checkpoint(out), state)
+    exact = (back.step == state.step and back.opt_state.count == state.opt_state.count
+             and all(torch.equal(a[k], b[k]) for a, b in (
+                 (back.params, state.params), (back.batch_stats, state.batch_stats),
+                 (back.opt_state.trace, state.opt_state.trace),
+                 (back.ema_params, state.ema_params)) for k in b))
+    print(f"train checkpoint {os.path.join('out', 'chip_smoke_train')}: save -> load "
+          f"{'bit for bit' if exact else 'DIFFERS'}")
+    if not exact:
+        raise AssertionError("train checkpoint round trip is not exact")
+    from vbt_tpu_torch.io.synthetic import plate_boxes, plate_frames
+    from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
+
+    n_eval = 40
+    images = list(plate_frames(n_eval, TRAIN_SIZE, TRAIN_SIZE, seed=9, period=PERIOD))
+    truth = [b[None].astype(np.float64)
+             for b in plate_boxes(n_eval, TRAIN_SIZE, TRAIN_SIZE, period=PERIOD)]
+    dims = [(TRAIN_SIZE, TRAIN_SIZE)] * n_eval
+    results, launches = {}, 0
+    for tag, use_ema in (("raw", False), ("ema", True)):
+        pipe = DetectionPipeline(spec, trainer.variables(state, use_ema=use_ema), device="cuda")
+        detect_resized(pipe, images[:1], dims[:1])  # first launches
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        dets = detect_resized(pipe, images, dims)
+        lane = {name: fn.launches for name, fn in kernels.items()}
+        want = {"nms": -(-n_eval // EVAL_BATCH), "fused_mbconv": 0, "track_scan": 0,
+                "analysis_scan": 0}
+        if lane != want:
+            raise AssertionError(f"train eval [{tag}]: launches {lane}, want {want}")
+        launches += lane["nms"]
+        results[tag] = (coco_metrics(dets, truth), dets)
+    best = max(results, key=lambda t: results[t][0]["AP"])
+    path = os.path.join(out, f"{spec.name}.msgpack")
+    save_params(path, trainer.variables(state, use_ema=best == "ema"))
+    reloaded = detect_resized(DetectionPipeline.from_model_arg(path, device="cuda"), images, dims)
+    same_dets = all(np.array_equal(a["boxes"], b["boxes"]) and np.array_equal(a["scores"],
+                                                                              b["scores"])
+                    for a, b in zip(reloaded, results[best][1]))
+    print(f"train eval, {n_eval} held-out images, batches of {EVAL_BATCH}: NMS {launches} "
+          f"launches; " + "; ".join(
+              f"{tag} AP {m['AP']:.4f} AP50 {m['AP50']:.4f} AP75 {m['AP75']:.4f}"
+              for tag, (m, _) in results.items())
+          + f"; exported {best} to {os.path.join('out', 'chip_smoke_train', spec.name)}.msgpack, "
+          f"reloaded: detections {'the same' if same_dets else 'DIFFER'}")
+    if not same_dets:
+        raise AssertionError("the exported checkpoint does not give the same detections")
+    print(f"phase 13 (training) {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def _host_s(fn) -> float:

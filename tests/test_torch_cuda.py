@@ -30,7 +30,9 @@ measured bit for bit, on the card and in the CPU build). The int8 lane's
 products (``torch._int_mm`` after the zero-padding rule) against the plain
 version on CPU copies: bit for bit, int32 accumulators; the int8 lane's top
 boxes within 0.05 of the frame of the bf16 lane's (the bound the bf16 lane
-is held to against float32).
+is held to against float32). Training: train-mode BatchNorm 1e-5, and two
+train steps (float32 and float64) against the CPU port under
+``chip_smoke.py``'s phase-13 bounds.
 """
 
 import os
@@ -632,3 +634,71 @@ def test_eval_lane_on_the_card(dev):
     assert nms.launches == 2 * len(images)
     assert sum(iou > 0.5 for iou in ious) == len(images) and metrics["AP50"] > 0.9
     assert len(pipe.rings) <= MAX_RINGS
+
+
+def test_train_mode_batchnorm_on_the_card_equals_cpu(dev):
+    """flax's train-mode BatchNorm (batch statistics, fast biased variance,
+    r <- 0.99 r + 0.01 batch) on the card against the CPU: 1e-5."""
+    from vbt_tpu_torch.models.conv import BatchNorm
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 24, 40, 40, generator=gen) * 2 + 3
+    mods = []
+    for device in ("cpu", dev):
+        bn = BatchNorm(24).to(device)
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 24))
+            bn.bias.copy_(torch.linspace(-0.2, 0.2, 24))
+            bn.running_mean.zero_()
+            bn.running_var.fill_(1.0)
+        mods.append((bn.train(), bn(x.to(device)).detach().cpu()))
+    (cpu, want), (card, got) = mods
+    assert (got - want).abs().max().item() <= 1e-5
+    for name in ("running_mean", "running_var"):
+        assert (getattr(card, name).cpu() - getattr(cpu, name)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_train_step_on_the_card_equals_cpu(dev, dtype):
+    """Two train steps of lite0 at 128 px, B = 4, on the card against the
+    CPU port from one state and one batch, under ``chip_smoke.py``'s
+    phase-13 bounds: (loss and running statistics relative, the momentum
+    trace relative to its largest value, absolute floor), params and EMA
+    within the floor plus lr times the trace's bound (the second step moves
+    them by lr * trace). float32 gradients of train-mode BatchNorm are
+    ill-conditioned (the bound is percents); float64 shows the same step."""
+    from vbt_tpu_torch.io.synthetic import plate_boxes, plate_frames
+    from vbt_tpu_torch.models import get_model_spec
+    from vbt_tpu_torch.train.train_step import Trainer
+
+    rtol, trace_rtol, atol = {"float32": (1e-4, 5e-2, 1e-5), "float64": (1e-9, 1e-7, 1e-12)}[dtype]
+    b, size, lr = 4, 128, 0.01
+    images = (torch.from_numpy(plate_frames(b, size, size, seed=1)).float() - 127) / 128
+    boxes = torch.from_numpy(plate_boxes(b, size, size)).float()[:, None]
+    runs = []
+    for device in ("cpu", dev):
+        trainer = Trainer(get_model_spec("efficientdet_lite0"), base_lr=lr, total_steps=10,
+                          warmup_steps=1, input_size=size, dtype=getattr(torch, dtype),
+                          device=device)
+        state = trainer.init_state(seed=0)
+        batch = {"images": images.permute(0, 3, 1, 2).contiguous().to(device),
+                 "gt_boxes": boxes.to(device), "gt_valid": torch.ones(b, 1, dtype=torch.bool,
+                                                                     device=device)}
+        losses = []
+        for _ in range(2):
+            state, metrics = trainer.train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+        runs.append((losses, state))
+    (closs, cpu), (gloss, card) = runs
+    assert card.step == cpu.step == 2
+    for g, c in zip(gloss, closs):
+        assert abs(g - c) <= rtol * abs(c)
+    top = max(t.abs().max().item() for t in cpu.opt_state.trace.values())
+    diff = lambda a, k, w: (a[k].cpu() - w).abs().max().item()  # noqa: E731
+    for k, want in cpu.opt_state.trace.items():
+        assert diff(card.opt_state.trace, k, want) <= trace_rtol * top, k
+    for name in ("params", "ema_params"):
+        for k, want in getattr(cpu, name).items():
+            assert diff(getattr(card, name), k, want) <= atol + lr * trace_rtol * top, k
+    for k, want in cpu.batch_stats.items():
+        assert diff(card.batch_stats, k, want) <= atol + rtol * want.abs().max().item(), k

@@ -47,7 +47,7 @@ from vbt_tpu.train import coco_eval as jax_coco  # noqa: E402
 from vbt_tpu.train.evaluate import evaluate_model as jax_evaluate_model  # noqa: E402
 from vbt_tpu_torch.cli import eval as port_eval  # noqa: E402
 from vbt_tpu_torch.contract.parsers import read_voc_annotations  # noqa: E402
-from vbt_tpu_torch.io.synthetic import plate_boxes, plate_frames  # noqa: E402
+from vbt_tpu_torch.io.synthetic import plate_boxes, plate_frames, write_voc  # noqa: E402
 from vbt_tpu_torch.runtime import pipeline as port_pipeline  # noqa: E402
 from vbt_tpu_torch.runtime.pipeline import DetectionPipeline  # noqa: E402
 from vbt_tpu_torch.train import coco_eval  # noqa: E402
@@ -128,20 +128,7 @@ def test_curves_of_the_cached_detections_match_jax(tmp_path):
 def _write_voc(root):
     """Two synthetic plate frames at each of SIZES as JPG, each with an XML
     holding the analytic plate box (``barbell``) and a box of another label."""
-    import cv2
-
-    for h, w in SIZES:
-        frames = plate_frames(2, h, w, seed=h + w, period=5)
-        boxes = np.rint(plate_boxes(2, h, w, period=5)).astype(int)
-        for i, (img, box) in enumerate(zip(frames, boxes)):
-            name = f"plate_{h}x{w}_{i}"
-            cv2.imwrite(str(root / f"{name}.jpg"), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
-            objects = "".join(
-                f"<object><name>{label}</name><bndbox><xmin>{b[1]}</xmin><ymin>{b[0]}</ymin>"
-                f"<xmax>{b[3]}</xmax><ymax>{b[2]}</ymax></bndbox></object>"
-                for label, b in (("barbell", box), ("person", [0, 0, h // 4, w // 4])))
-            (root / f"{name}.xml").write_text(
-                f"<annotation><filename>{name}.jpg</filename>{objects}</annotation>")
+    write_voc(str(root), SIZES)
 
 
 @pytest.fixture(scope="module")

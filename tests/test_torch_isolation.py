@@ -39,7 +39,10 @@ def test_import_loads_no_jax_or_reference_package():
                    "runtime.batch_runner", "runtime.upload", "tracking.scan",
                    "analysis.smoother_scan", "ops.analysis_scan_cuda", "runtime.streaming",
                    "cli.stream", "parallel.mesh", "parallel.time_shard", "models.quant",
-                   "contract.parsers", "train.coco_eval", "train.evaluate", "cli.eval"):
+                   "contract.parsers", "train.coco_eval", "train.evaluate", "cli.eval",
+                   "train.losses", "train.targets", "train.augment", "train.data",
+                   "train.train_step", "train.fused", "cli.train", "cli.data_prep",
+                   "cli.training_plot"):
         assert f"vbt_tpu_torch.{module}" in names.split(","), module
     assert bad == "", f"port imported {bad}"
 

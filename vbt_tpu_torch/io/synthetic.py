@@ -8,7 +8,9 @@ drives detection and tracking end to end without video files or OpenCV:
 write them to a video.
 
 :func:`plate_boxes` is the disc's analytic box in each of those frames,
-the ground truth of the detector's evaluation on them.
+the ground truth of the detector's evaluation on them; :func:`write_voc`
+writes such frames and boxes as a PASCAL-VOC directory (JPG and XML, cv2
+imported inside) for the evaluation and training CLIs.
 
 :func:`plate_detections` and :func:`crossing_detections` are tracker
 inputs without a detector: per-frame detection rows of plates moving up
@@ -59,6 +61,29 @@ def plate_boxes(n: int, height: int, width: int, period: int = 32) -> np.ndarray
     cx = np.full(n, width / 2)
     r = PLATE_RADIUS * height
     return np.stack([cy - r, cx - r, cy + r, cx + r], axis=1)
+
+
+def write_voc(root, sizes, n: int = 2, period: int = 5) -> None:
+    """Write ``n`` plate frames at each (height, width) of ``sizes`` into
+    the directory ``root`` as ``plate_{h}x{w}_{i}.jpg``, each with an XML
+    holding the analytic plate box (label ``barbell``) and a box of another
+    label (``person``)."""
+    import os
+
+    import cv2
+
+    for h, w in sizes:
+        frames = plate_frames(n, h, w, seed=h + w, period=period)
+        boxes = np.rint(plate_boxes(n, h, w, period=period)).astype(int)
+        for i, (img, box) in enumerate(zip(frames, boxes)):
+            name = f"plate_{h}x{w}_{i}"
+            cv2.imwrite(os.path.join(root, f"{name}.jpg"), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+            objects = "".join(
+                f"<object><name>{label}</name><bndbox><xmin>{b[1]}</xmin><ymin>{b[0]}</ymin>"
+                f"<xmax>{b[3]}</xmax><ymax>{b[2]}</ymax></bndbox></object>"
+                for label, b in (("barbell", box), ("person", [0, 0, h // 4, w // 4])))
+            with open(os.path.join(root, f"{name}.xml"), "w") as f:
+                f.write(f"<annotation><filename>{name}.jpg</filename>{objects}</annotation>")
 
 
 def pad_detections(frames: list[np.ndarray], d_cap: int) -> tuple[np.ndarray, np.ndarray]:

@@ -1,4 +1,4 @@
-"""Multi-scale anchors (numpy) and box decode (torch).
+"""Multi-scale anchors (numpy), box decode and encode (torch).
 
 Copy of ``vbt_tpu.models.anchors``: RetinaNet-style anchors over pyramid
 levels 3-7, 3 octave scales x 3 aspect ratios per cell (9 anchors/cell),
@@ -84,3 +84,18 @@ def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     h = torch.exp(th) * ha
     w = torch.exp(tw) * wa
     return torch.stack([yc - h / 2, xc - w / 2, yc + h / 2, xc + w / 2], dim=-1)
+
+
+def encode_boxes(boxes: torch.Tensor, anchors: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Inverse of :func:`decode_boxes` for training targets: [ymin, xmin,
+    ymax, xmax] boxes -> (ty, tx, th, tw) against [yc, xc, h, w] anchors,
+    heights and widths floored at ``eps``. Broadcasts over leading dims."""
+    anchors = anchors.to(boxes.dtype)
+    ya, xa, ha, wa = anchors.unbind(-1)
+    ymin, xmin, ymax, xmax = boxes.unbind(-1)
+    h = torch.clamp(ymax - ymin, min=eps)
+    w = torch.clamp(xmax - xmin, min=eps)
+    yc = ymin + h / 2
+    xc = xmin + w / 2
+    return torch.stack([(yc - ya) / ha, (xc - xa) / wa, torch.log(h / ha), torch.log(w / wa)],
+                       dim=-1)

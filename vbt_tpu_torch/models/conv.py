@@ -19,6 +19,7 @@ from torch import nn
 from vbt_tpu_torch.models import quant as q
 
 BN_EPS = 1e-3  # EfficientNet/flax BatchNorm epsilon used throughout
+BN_MOMENTUM = 0.99  # flax's convention: the weight of the old running value
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
@@ -51,8 +52,8 @@ class Conv2dSame(nn.Module):
     """Conv with XLA SAME padding; ``groups == in_ch`` gives a depthwise conv.
 
     Parameters: ``weight`` (out, in // groups, k, k) and optional ``bias``.
-    They are filled from a checkpoint (``runtime.checkpoint``), never
-    randomly initialised on the serving path. A dense conv has the buffer
+    They are filled from a checkpoint (``runtime.checkpoint``) or, to train
+    from scratch, by ``models.efficientdet.init_parameters``. A dense conv has the buffer
     ``act_scale`` (``None`` until calibrated or loaded) and a ``quant``
     mode: ``"calibrate"`` records the running max of ``|x|`` on the float
     path, ``"int8"`` quantizes ``x`` with it and runs the int8 product on
@@ -89,7 +90,16 @@ class Conv2dSame(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm on NCHW with running statistics, eps 1e-3."""
+    """BatchNorm on NCHW with flax's semantics, eps 1e-3, momentum 0.99.
+
+    In eval mode it normalizes with the running statistics. In train mode
+    it normalizes with the batch's: mean and variance over N, H, W in
+    float32 (float64 for float64 inputs), the variance flax's fast one (``mean(x^2) - mean(x)^2``,
+    clamped at 0) and biased; and it updates the running statistics in
+    place, ``r <- 0.99 r + 0.01 batch``, the variance biased too.
+    ``F.batch_norm(training=True)`` is not that: it stores the unbiased
+    variance and reads its momentum the other way round.
+    """
 
     def __init__(self, channels: int):
         super().__init__()
@@ -99,5 +109,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.empty(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                            self.bias, training=False, eps=BN_EPS)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=False, eps=BN_EPS)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)

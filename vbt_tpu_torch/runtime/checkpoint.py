@@ -1,4 +1,4 @@
-"""Load the shipped flax msgpack checkpoints into the torch modules.
+"""Read and write flax msgpack checkpoints for the torch modules.
 
 The checkpoints (``models/*.msgpack``) are ``flax.serialization.to_bytes``
 of ``{"params": ..., "batch_stats": ...}``. This module reads them without
@@ -14,10 +14,23 @@ C)`` both become OIHW by ``transpose(3, 2, 0, 1)``), BN ``scale`` ->
 flax auto-name ``BatchNorm_0`` -> ``bn``. A calibrated pipeline's ``quant``
 collection carries one ``act_scale`` leaf per dense conv; each becomes that
 conv's ``act_scale`` buffer (a float32 scalar).
+
+The writer is the inverse, so checkpoints stay loadable by both packages:
+:func:`msgpack_pack` encodes as ``msgpack.packb`` does (the smallest
+format for each value, arrays as ext type 1), :func:`to_flax_variables`
+undoes :func:`convert_flax_variables` (OIHW -> HWIO, ``bn`` ->
+``BatchNorm_0``, keys sorted as JAX's pytrees sort them), and
+:func:`save_params` writes ``flax.serialization.to_bytes`` of the result.
+Train checkpoints (:func:`save_train_checkpoint`) keep the JAX package's
+layout, ``step_{step:08d}.msgpack`` plus ``LATEST``, each file flax's state
+dict of its ``TrainState``: ``step`` (int32), ``params``, ``batch_stats``,
+``opt_state`` (optax's chain state; see :func:`_opt_state_tree`) and
+``ema_params``.
 """
 
 from __future__ import annotations
 
+import os
 import struct
 from collections import OrderedDict
 
@@ -153,8 +166,8 @@ def convert_flax_variables(variables: dict) -> "OrderedDict[str, torch.Tensor]":
             arr = np.asarray(arr)
             if leaf == "weight" and arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
-            # ascontiguousarray makes a 0-d scale 1-d: keep the leaf's shape.
-            out[key] = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
+            # A writable C-order copy (the leaf may be a read-only view), shape kept.
+            out[key] = torch.from_numpy(np.array(arr, order="C", copy=True).reshape(arr.shape))
     return out
 
 
@@ -180,3 +193,204 @@ def load_checkpoint(path: str) -> "OrderedDict[str, torch.Tensor]":
     """Read a flax msgpack checkpoint and convert it to a ``state_dict``."""
     with open(path, "rb") as f:
         return convert_flax_variables(msgpack_restore(f.read()))
+
+
+# -- writer ---------------------------------------------------------------------
+def _sized(n: int, small: tuple[int, int] | None, markers: tuple[int, int, int]) -> bytes:
+    """A msgpack length header: the fix form below ``small[0]`` (marker
+    ``small[1] | n``), else 8-, 16- or 32-bit (``markers``, None for none)."""
+    if small is not None and n < small[0]:
+        return bytes([small[1] | n])
+    for marker, fmt, limit in zip(markers, (">B", ">H", ">I"), (1 << 8, 1 << 16, 1 << 32)):
+        if marker is not None and n < limit:
+            return bytes([marker]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack_int(n: int) -> bytes:
+    if 0 <= n < 128:
+        return bytes([n])
+    if -32 <= n < 0:
+        return struct.pack(">b", n)
+    if n >= 0:
+        for marker, fmt, limit in ((0xCC, ">B", 1 << 8), (0xCD, ">H", 1 << 16),
+                                   (0xCE, ">I", 1 << 32), (0xCF, ">Q", 1 << 64)):
+            if n < limit:
+                return bytes([marker]) + struct.pack(fmt, n)
+    for marker, fmt, limit in ((0xD0, ">b", 1 << 7), (0xD1, ">h", 1 << 15),
+                               (0xD2, ">i", 1 << 31), (0xD3, ">q", 1 << 63)):
+        if -limit <= n:
+            return bytes([marker]) + struct.pack(fmt, n)
+    raise ValueError(f"integer {n} does not fit msgpack")
+
+
+def _pack(obj, out: list) -> None:
+    if obj is None or isinstance(obj, bool):
+        out.append({None: b"\xc0", False: b"\xc2", True: b"\xc3"}[obj])
+    elif isinstance(obj, int):
+        out.append(_pack_int(obj))
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        out.append(_sized(len(data), (32, 0xA0), (0xD9, 0xDA, 0xDB)) + data)
+    elif isinstance(obj, bytes):
+        out.append(_sized(len(obj), None, (0xC4, 0xC5, 0xC6)) + obj)
+    elif isinstance(obj, (list, tuple)):
+        out.append(_sized(len(obj), (16, 0x90), (None, 0xDC, 0xDD)))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        out.append(_sized(len(obj), (16, 0x80), (None, 0xDE, 0xDF)))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, np.ndarray):
+        data = msgpack_pack([list(obj.shape), obj.dtype.name, obj.tobytes()])  # C order
+        n = len(data)
+        if n in (1, 2, 4, 8, 16):
+            head = bytes([0xD4 + n.bit_length() - 1])
+        else:
+            head = _sized(n, None, (0xC7, 0xC8, 0xC9))
+        out.append(head + struct.pack(">b", _EXT_NDARRAY) + data)
+    else:
+        raise TypeError(f"cannot msgpack {type(obj).__name__}")
+
+
+def msgpack_pack(obj) -> bytes:
+    """Encode nested dicts, lists, scalars and numpy arrays as flax's
+    ``msgpack_serialize`` does (dicts in their own order)."""
+    out: list[bytes] = []
+    _pack(obj, out)
+    return b"".join(out)
+
+
+def _sorted_tree(tree: dict) -> dict:
+    return {k: (_sorted_tree(v) if isinstance(v, dict) else v) for k, v in sorted(tree.items())}
+
+
+def to_flax_variables(state_dict: dict, collections: tuple[str, ...] = ("params", "batch_stats")
+                      ) -> dict:
+    """The inverse of :func:`convert_flax_variables` for a model
+    ``state_dict`` (or a dict of its parameters alone): nested flax
+    variables of numpy arrays, the collections in the given order and the
+    keys below them sorted. Raises on a key that
+    maps to no flax leaf."""
+    inverse = {("params", "bias"): "bias", ("batch_stats", "running_mean"): "mean",
+               ("batch_stats", "running_var"): "var"}
+    trees: dict = {c: {} for c in collections}
+    for key, tensor in state_dict.items():
+        *mods, leaf = key.split(".")
+        arr = tensor.detach().cpu().numpy()
+        if leaf == "weight":
+            collection, name = "params", "kernel" if arr.ndim == 4 else "scale"
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        else:
+            collection = "params" if leaf == "bias" else "batch_stats"
+            name = inverse.get((collection, leaf))
+        if name is None or collection not in trees:
+            raise KeyError(f"{key!r} maps to no flax leaf of {collections}")
+        node = trees[collection]
+        for m in mods:
+            node = node.setdefault("BatchNorm_0" if m == "bn" else m, {})
+        node[name] = arr
+    return {c: _sorted_tree(trees[c]) for c in collections}
+
+
+def save_params(path: str, state_dict: dict) -> None:
+    """Write a model ``state_dict`` as the flax msgpack checkpoint the JAX
+    package writes (``{"params", "batch_stats"}``)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(msgpack_pack(to_flax_variables(state_dict)))
+
+
+def _check_like(got: dict, template: dict, what: str) -> None:
+    if got.keys() != template.keys():
+        missing, extra = sorted(template.keys() - got.keys()), sorted(got.keys() - template.keys())
+        raise KeyError(f"{what}: missing {missing[:5]}, unexpected {extra[:5]}")
+    for k, v in got.items():
+        if tuple(v.shape) != tuple(template[k].shape):
+            raise ValueError(f"{what}: {k} has shape {tuple(v.shape)}, want "
+                             f"{tuple(template[k].shape)}")
+
+
+def load_params(path: str, template: dict) -> "OrderedDict[str, torch.Tensor]":
+    """Read a flax msgpack checkpoint as a ``state_dict`` with the keys and
+    shapes of ``template`` (raises otherwise), on its tensors' devices."""
+    got = load_checkpoint(path)
+    _check_like(got, template, path)
+    return OrderedDict((k, got[k].to(template[k].device)) for k in template)
+
+
+def _opt_state_tree(opt_state, params_tree) -> dict:
+    """optax's chain state as flax's state dict: ``[masked(set_to_zero)]``
+    (with frozen keys), ``clip_by_global_norm``, ``add_decayed_weights``
+    (masked), ``sgd`` = (trace, scale_by_schedule)."""
+    parts = ([{"inner_state": {}}] if opt_state.frozen else []) + [
+        {}, {"inner_state": {}},
+        {"0": {"trace": params_tree}, "1": {"count": np.asarray(opt_state.count, np.int32)}}]
+    return {str(i): part for i, part in enumerate(parts)}
+
+
+def train_state_to_flax(state) -> dict:
+    """A port ``TrainState`` as flax's state dict of the JAX ``TrainState``."""
+    params = lambda d: to_flax_variables(d, ("params",))["params"]  # noqa: E731
+    return {
+        "step": np.asarray(state.step, np.int32),
+        "params": params(state.params),
+        "batch_stats": to_flax_variables(state.batch_stats, ("batch_stats",))["batch_stats"],
+        "opt_state": _opt_state_tree(state.opt_state, params(state.opt_state.trace)),
+        "ema_params": params(state.ema_params),
+    }
+
+
+def train_state_from_flax(tree: dict, template):
+    """flax's state dict of a JAX ``TrainState`` -> a port ``TrainState``
+    with ``template``'s keys, shapes, dtypes, devices and freeze (raises on any
+    other layout)."""
+    def tensors(flax_tree: dict, collection: str, like: dict) -> dict:
+        got = convert_flax_variables({collection: flax_tree})
+        _check_like(got, like, collection)
+        return {k: got[k].to(like[k].device, like[k].dtype) for k in like}
+
+    opt_like = _opt_state_tree(template.opt_state, {})
+    opt = tree["opt_state"]
+    sgd_key = str(len(opt_like) - 1)
+    if set(opt) != set(opt_like) or set(opt[sgd_key]) != {"0", "1"}:
+        raise KeyError(f"optimizer state layout {sorted(opt)} is not this trainer's "
+                       f"{sorted(opt_like)} (freeze {template.opt_state.frozen})")
+    sgd = opt[sgd_key]
+    opt_state = type(template.opt_state)(
+        tensors(sgd["0"]["trace"], "params", template.opt_state.trace),
+        int(sgd["1"]["count"]), template.opt_state.frozen)
+    return type(template)(
+        int(tree["step"]), tensors(tree["params"], "params", template.params),
+        tensors(tree["batch_stats"], "batch_stats", template.batch_stats), opt_state,
+        tensors(tree["ema_params"], "params", template.ema_params))
+
+
+def save_train_checkpoint(ckpt_dir: str, step: int, state) -> None:
+    """Mid-training checkpoint: ``step_{step:08d}.msgpack`` plus a LATEST
+    marker, readable by the JAX package's ``load_train_checkpoint``."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    with open(os.path.join(ckpt_dir, f"step_{step:08d}.msgpack"), "wb") as f:
+        f.write(msgpack_pack(train_state_to_flax(state)))
+    with open(os.path.join(ckpt_dir, "LATEST"), "w") as f:
+        f.write(f"{step}\n")
+
+
+def latest_train_checkpoint(ckpt_dir: str) -> int | None:
+    marker = os.path.join(ckpt_dir, "LATEST")
+    if not os.path.exists(marker):
+        return None
+    with open(marker) as f:
+        return int(f.read().strip())
+
+
+def load_train_checkpoint(ckpt_dir: str, step: int, template):
+    """Read ``step_{step:08d}.msgpack`` (either package's) into a port
+    ``TrainState`` shaped like ``template``."""
+    with open(os.path.join(ckpt_dir, f"step_{step:08d}.msgpack"), "rb") as f:
+        return train_state_from_flax(msgpack_restore(f.read()), template)

@@ -1,2 +1,2 @@
-"""Detector evaluation (COCO AP on VOC ground truth); training is a later
-slice."""
+"""Training (losses, targets, augmentation, the train step, the device-resident
+loop) and detector evaluation (COCO AP on VOC ground truth)."""
