@@ -115,7 +115,28 @@ Phases, each of which raises on failure:
    the same detections; (e) the fused step's and the augmentation's time
    (CUDA events), images/s and the peak memory, beside the card's name and
    power limit, and the step's device busy time split by part
-   (``torch.profiler``).
+   (``torch.profiler``);
+14. the operational shell, the ground-truth CLIs and bf16 training: (a) the
+   CUDA health probe ``require_healthy_device("cuda")`` passes, with the
+   child's marginal lite0 bf16 forward at B = 128 and its K1 launch count
+   printed, and the ``wedged`` fake is killed within its deadline plus 5 s;
+   (b) the keyed build cache: a second ``build_all()`` builds nothing, a
+   changed ``SOURCE_FLAGS`` entry gives a new key and a new file, each
+   library's key printed; (c) ``utils.profiling.trace`` around the detect +
+   K3 path of ``vbt-torch-track`` over the 256 frames: the trace file read
+   back holds K1's and K3's kernel events in the counts the wrappers
+   launched, its size and top five device operations printed; (d) the
+   ground-truth validation of that track against Kinovea and Qualisys
+   exports of the scene's analytic trajectory (30 Hz, cm, comma decimals;
+   100 Hz, mm, x negated, 11 header rows): MSE and r of each axis, r_y above
+   ``GT_R_Y_MIN`` (x is constant in the scene, so r_x is NaN and not held);
+   (e) ``Trainer(dtype=torch.bfloat16)``: two steps on the card against the
+   CPU port's on the CPU's batch within ``TRAIN_BOUNDS["bfloat16"]`` (the
+   losses, and each group of the state as one vector against the
+   devices' own bf16-against-float32 distances), phase 13's recipe from
+   scratch in bf16 (the loss falls), and the fused step in bf16 and in
+   float32 in turns (median of 6 each): time, images/s, idle share and peak
+   memory.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -187,9 +208,30 @@ STEP_CHECK_BATCH = 8
 # Parameters and EMA move by lr * trace in the second step (lr(0) = 0), so
 # their bound is the floor plus lr times the trace's. The augmented batch:
 # images within 1e-3, boxes within 1e-4, valid exact.
-TRAIN_BOUNDS = {"float32": (1e-4, 5e-2, 1e-5), "float64": (1e-9, 1e-7, 1e-12)}
+# bfloat16 (phase 14 (e)), on the CPU's batch: (loss relative; factor and
+# floor of a group's bound). cuDNN's and the CPU's bf16 convolutions
+# accumulate in float32 in their own order, so an output can round to a
+# neighbouring bf16 value (2^-8 relative), which the later layers carry; on
+# the CPU the port's bf16 loss is within 1e-2 of JAX's for the same reason
+# (tests/test_torch_train_bf16.py). Leaf by leaf the gradients are not
+# comparable in bf16 (float32's ill-conditioning, fed 2^-8 instead of 2^-24
+# perturbations: the first chip run of phase 14 found leaves differing by
+# more than the trace's largest value), so each group (params, EMA,
+# running statistics, trace) is held as one vector: its relative L2
+# distance between the devices within twice the larger of the two
+# devices' own bf16-against-float32 distances (two independent bf16
+# roundings differ by about sqrt(2) times one), plus the floor.
+TRAIN_BOUNDS = {"float32": (1e-4, 5e-2, 1e-5), "float64": (1e-9, 1e-7, 1e-12),
+                "bfloat16": (3e-2, 2.0, 1e-6)}
 TRAIN_CHECK_LR = 0.01
 FREEZE = ("backbone", "fpn")
+# Phase 14.
+WEDGED_DEADLINE_S = 3.0
+# r_y of the card's track against the analytic trajectory. The Kinovea flow
+# smooths x and y with a trailing rolling mean of 5 frames, which lags the
+# 32-frame sine by 2 frames: r = cos(2 pi 2 / 32) = 0.924 at best. The
+# Qualisys flow does not smooth.
+GT_R_Y_MIN = {"kinovea": 0.9, "qualisys": 0.99}
 
 
 def _nvidia_smi() -> str:
@@ -997,6 +1039,7 @@ def main(argv=None) -> int:
     from vbt_tpu_torch.ops.nms_cuda import nms
     from vbt_tpu_torch.ops.track_scan_cuda import track_scan
     from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
+    from vbt_tpu_torch.utils.cache import enable_persistent_cache
     from vbt_tpu_torch.utils.device import resolve_device
 
     t_all = time.perf_counter()
@@ -1008,8 +1051,9 @@ def main(argv=None) -> int:
 
     # 2. Build every kernel of the path.
     t0 = time.perf_counter()
+    build_dir = enable_persistent_cache()
     built = _build.build_all(_build.PTXAS_VERBOSE if args.ptxas else ())
-    print(f"built {built} in {time.perf_counter() - t0:.2f} s")
+    print(f"built {built} in {time.perf_counter() - t0:.2f} s into {build_dir}")
     if args.ptxas:
         for name in built:
             print(f"nvcc -Xptxas -v csrc/{name}.cu:\n{_build.build_log[name]}")
@@ -1087,6 +1131,9 @@ def main(argv=None) -> int:
     _eval_lanes({"bf16": pipe, "int8": qpipe}, kernels)
     # 13. Training.
     records[0]["train_launches"] = _train_phase(kernels)
+    # 14. The operational shell, the ground-truth CLIs and bf16 training.
+    records[0]["probe_launches"], records[0]["trace_launches"] = _shell_phase(pipe, frames,
+                                                                             kernels)
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1630,13 +1677,11 @@ def _step_ratios(cpu, card, bounds) -> dict:
             "trace": worst("opt_state", lambda w: trace_rtol * trace_max)}
 
 
-def _hold_train_step(spec) -> None:
-    """Phase 13 (a): two train steps on the card against CPU copies, float32
-    on each device's own augmentation of one batch, then float64 on the
-    CPU's."""
+def _check_batches() -> dict:
+    """One batch of ``STEP_CHECK_BATCH`` plate images augmented with the same
+    draws on the CPU and on the card: ``{device: batch}``."""
     import torch
     from vbt_tpu_torch.train.augment import augment_mosaic_and_normalize, draw_mosaic
-    from vbt_tpu_torch.train.train_step import Trainer
 
     data = _train_data(STEP_CHECK_BATCH, seed=3)
     draws = draw_mosaic(torch.Generator().manual_seed(0), STEP_CHECK_BATCH, TRAIN_SIZE)
@@ -1646,6 +1691,33 @@ def _hold_train_step(spec) -> None:
         batches[device] = dict(zip(("images", "gt_boxes", "gt_valid"), augment_mosaic_and_normalize(
             *(torch.from_numpy(a).to(device) for a in (data.images, data.boxes, data.valid)),
             type(draws)(*map(on, draws)))))
+    return batches
+
+
+def _two_steps(spec, device, dtype, batch):
+    """Two train steps from the seed-0 state on ``device`` in ``dtype``:
+    (losses, final state, seconds)."""
+    from vbt_tpu_torch.train.train_step import Trainer
+
+    t0 = time.perf_counter()
+    trainer = Trainer(spec, base_lr=TRAIN_CHECK_LR, total_steps=10, warmup_steps=1,
+                      input_size=TRAIN_SIZE, dtype=dtype, device=device)
+    state = trainer.init_state(seed=0)
+    batch = {k: v.to(device) for k, v in batch.items()}
+    losses = []
+    for _ in range(2):
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(float(metrics["loss"]))
+    return losses, state, time.perf_counter() - t0
+
+
+def _hold_train_step(spec) -> None:
+    """Phase 13 (a): two train steps on the card against CPU copies, float32
+    on each device's own augmentation of one batch, then float64 on the
+    CPU's."""
+    import torch
+
+    batches = _check_batches()
     cb, gb = batches["cpu"], batches["cuda"]
     img_err = float((gb["images"].cpu() - cb["images"]).abs().max())
     box_err = float((gb["gt_boxes"].cpu() - cb["gt_boxes"]).abs().max())
@@ -1655,19 +1727,9 @@ def _hold_train_step(spec) -> None:
     ok = img_err <= 1e-3 and box_err <= 1e-4 and same_valid
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[-1]
-        runs = {}
-        for device in ("cpu", "cuda"):
-            t0 = time.perf_counter()
-            trainer = Trainer(spec, base_lr=TRAIN_CHECK_LR, total_steps=10, warmup_steps=1,
-                              input_size=TRAIN_SIZE, dtype=dtype, device=device)
-            state = trainer.init_state(seed=0)
-            batch = {k: v.to(device) for k, v in
-                     (batches[device] if dtype == torch.float32 else cb).items()}
-            losses = []
-            for _ in range(2):
-                state, metrics = trainer.train_step(state, batch)
-                losses.append(float(metrics["loss"]))
-            runs[device] = (losses, state, time.perf_counter() - t0)
+        runs = {device: _two_steps(spec, device, dtype,
+                                   batches[device] if dtype == torch.float32 else cb)
+                for device in ("cpu", "cuda")}
         (closs, cpu, cpu_s), (gloss, card, card_s) = runs["cpu"], runs["cuda"]
         loss_rel = max(abs(g - c) / abs(c) for g, c in zip(gloss, closs))
         ratios = _step_ratios(cpu, card, TRAIN_BOUNDS[name])
@@ -1678,6 +1740,58 @@ def _hold_train_step(spec) -> None:
         ok = ok and loss_rel <= TRAIN_BOUNDS[name][0] and max(ratios.values()) <= 1
     if not ok:
         raise AssertionError("train step: the card disagrees with the CPU beyond the bounds")
+
+
+def _distances(a, b) -> dict:
+    """Relative L2 distance of state ``a`` from state ``b`` in each group
+    (all its leaves as one vector): ``|a - b| / |b|``."""
+    out = {}
+    for group in ("params", "ema_params", "batch_stats", "trace"):
+        want = b.opt_state.trace if group == "trace" else getattr(b, group)
+        got = a.opt_state.trace if group == "trace" else getattr(a, group)
+        diff = sum(float((got[k].cpu().double() - w.cpu().double()).square().sum())
+                   for k, w in want.items())
+        norm = sum(float(w.cpu().double().square().sum()) for w in want.values())
+        out[group] = (diff / norm) ** 0.5
+    return out
+
+
+def _hold_bf16_step(spec) -> None:
+    """Phase 14 (e): two bfloat16 train steps on the card against the CPU
+    port's, on the CPU's batch, beside each device's float32 steps on it:
+    the losses within ``TRAIN_BOUNDS["bfloat16"]``, and each group's
+    distance between the devices within its factor of the larger of the two
+    devices' own bfloat16-against-float32 distances."""
+    import torch
+
+    cb = _check_batches()["cpu"]
+    runs = {(device, dtype): _two_steps(spec, device, dtype, cb)
+            for device in ("cpu", "cuda") for dtype in (torch.bfloat16, torch.float32)}
+    loss_rtol, factor, floor = TRAIN_BOUNDS["bfloat16"]
+    (closs, cpu, cpu_s), (gloss, card, card_s) = (runs["cpu", torch.bfloat16],
+                                                  runs["cuda", torch.bfloat16])
+    loss_rel = max(abs(g - c) / abs(c) for g, c in zip(gloss, closs))
+    f32 = {d: runs[d, torch.float32] for d in ("cpu", "cuda")}
+    gaps = {d: abs(runs[d, torch.bfloat16][0][0] - f32[d][0][0]) / abs(f32[d][0][0])
+            for d in ("cpu", "cuda")}
+    across = _distances(card, cpu)
+    own = {d: _distances(runs[d, torch.bfloat16][1], f32[d][1]) for d in ("cpu", "cuda")}
+    ratios = {g: across[g] / (factor * max(own["cpu"][g], own["cuda"][g]) + floor)
+              for g in across}
+    print(f"train step, lite0 {TRAIN_SIZE}, B = {STEP_CHECK_BATCH}, bfloat16, card against CPU "
+          f"on the CPU's batch (CPU {cpu_s:.1f} s, card {card_s:.1f} s for 2 steps): losses "
+          f"{closs} / {gloss} (max rel {loss_rel:.3g}, bound {loss_rtol}); float32 losses CPU "
+          f"{f32['cpu'][0][0]}, card {f32['cuda'][0][0]}: bf16 moves the first loss by "
+          f"{gaps['cpu']:.3g} on the CPU, {gaps['cuda']:.3g} on the card")
+    for g in across:
+        print(f"  {g}: relative L2 distance card-CPU in bf16 {across[g]:.4g}; bf16 against "
+              f"float32 on the CPU {own['cpu'][g]:.4g}, on the card {own['cuda'][g]:.4g}; "
+              f"over its bound ({factor} x the larger + {floor}) {ratios[g]:.3g}")
+    leaf = _step_ratios(cpu, card, TRAIN_BOUNDS["float32"])
+    print("  largest difference of a leaf over phase 13's float32 bound (not held in bf16): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in leaf.items()))
+    if loss_rel > loss_rtol or max(ratios.values()) > 1:
+        raise AssertionError("bf16 train step: the card disagrees with the CPU beyond the bounds")
 
 
 def _train_profile(ddt, state, idx, gen, step_ms) -> None:
@@ -1855,6 +1969,229 @@ def _train_phase(kernels) -> int:
         raise AssertionError("the exported checkpoint does not give the same detections")
     print(f"phase 13 (training) {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def _probe_phase() -> int:
+    """Phase 14 (a): the health probe of the card, then the wedged fake
+    killed at its deadline. Returns the K1 launches of the probe's child."""
+    from vbt_tpu_torch.utils import health
+
+    t0 = time.perf_counter()
+    rep = health.require_healthy_device("cuda", context="chip_smoke")
+    print(f"health probe ({_nvidia_smi()}): {rep.reason} in {time.perf_counter() - t0:.1f} s; "
+          f"marginal lite0 bf16 detect_batch at B = {health.BATCH}, {health.SIZE}x{health.SIZE} "
+          f"uint8, random init: {rep.forward_ms} ms (threshold {health.SLOW_MS} ms); K1 launches "
+          f"in the child {rep.nms_launches}")
+    if not rep.ok or rep.forward_ms is None or rep.nms_launches != 16:  # run(12) + run(4)
+        raise AssertionError(f"health probe: {rep}")
+    os.environ[health.FAKE_ENV] = "wedged"
+    try:
+        t0 = time.perf_counter()
+        wedged = health.probe_device("cuda", deadline_s=WEDGED_DEADLINE_S)
+        took = time.perf_counter() - t0
+    finally:
+        del os.environ[health.FAKE_ENV]
+    print(f"health probe, wedged fake, deadline {WEDGED_DEADLINE_S} s: killed after {took:.2f} "
+          f"s: {wedged.reason}")
+    if wedged.ok or "wedged" not in wedged.reason or took > WEDGED_DEADLINE_S + 5:
+        raise AssertionError(f"wedged probe: ok={wedged.ok}, {took:.2f} s")
+    return rep.nms_launches
+
+
+def _cache_phase() -> None:
+    """Phase 14 (b): the keyed build cache."""
+    from vbt_tpu_torch.ops import _build
+
+    again = _build.build_all()
+    keys = {name: _build.library_key(name) for name in _build.SOURCES}
+    print(f"build cache {_build.BUILD_DIR}: a second build_all() built {again}; keys "
+          + ", ".join(f"{n} {k}" for n, k in keys.items()))
+    saved = _build.SOURCE_FLAGS.get("nms")
+    _build.SOURCE_FLAGS["nms"] = [*(saved or []), "-DVBT_CACHE_CHECK=1"]
+    try:
+        new_key, new_path = _build.library_key("nms"), _build.library_path("nms")
+        t0 = time.perf_counter()
+        rebuilt = _build.build_all()
+        took = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            del _build.SOURCE_FLAGS["nms"]
+        else:
+            _build.SOURCE_FLAGS["nms"] = saved
+    old_path = _build.library_path("nms")
+    print(f"build cache: SOURCE_FLAGS['nms'] + -DVBT_CACHE_CHECK=1 -> key {new_key}, built "
+          f"{rebuilt} in {took:.2f} s into {new_path.name} beside {old_path.name}")
+    if again or rebuilt != ["nms"] or new_key == keys["nms"] or not (
+            new_path.exists() and old_path.exists() and new_path != old_path):
+        raise AssertionError("build cache: not keyed as it should be")
+
+
+def _trace_phase(pipe, frames, kernels) -> tuple[dict, dict]:
+    """Phase 14 (c): ``trace`` around the detect + K3 path of
+    ``vbt-torch-track``; the trace file read back. Returns the tracks and
+    the launches."""
+    import glob
+    import shutil
+
+    import torch
+    from vbt_tpu_torch.cli.track import run_scan_tracker
+    from vbt_tpu_torch.utils.profiling import trace
+
+    log_dir = os.path.join(REPO, "out", "chip_smoke_trace")
+    shutil.rmtree(log_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with trace(log_dir):
+        rows, valid = _detect_all(pipe, frames)
+        tracks = run_scan_tracker(rows, valid, pipe.device)
+        torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    (path,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name: dict[str, list] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            acc = by_name.setdefault(e["name"], [0.0, 0])
+            acc[0] += float(e.get("dur", 0.0))
+            acc[1] += 1
+    found = {k: sum(n for name, (_, n) in by_name.items() if k + "_kernel" in name)
+             for k in ("nms", "track_scan")}
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3
+    print(f"trace {os.path.relpath(path, REPO)}: {os.path.getsize(path) / 2**20:.2f} MiB, "
+          f"{len(events)} events, traced run {took:.2f} s; kernel events: nms_kernel "
+          f"{found['nms']}, track_scan_kernel {found['track_scan']} against launches {launches}; "
+          f"top five device operations of {busy_ms:.3f} ms:")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]:
+        print(f"  {us / 1e3:9.3f} ms x{n:<5d} {name[:100]}")
+    want = {"nms": BATCHES, "fused_mbconv": 0, "track_scan": 1, "analysis_scan": 0}
+    if launches != want or found != {"nms": want["nms"], "track_scan": want["track_scan"]}:
+        raise AssertionError(f"trace: launches {launches}, kernel events {found}, want {want}")
+    return tracks, launches
+
+
+def _groundtruth_phase(tracks) -> None:
+    """Phase 14 (d): the card's track of the scene against Kinovea and
+    Qualisys exports of its analytic trajectory."""
+    import shutil
+
+    from vbt_tpu_torch.cli import kinovea, qualisys
+    from vbt_tpu_torch.cli._groundtruth import run_validation
+    from vbt_tpu_torch.cli.track import tracks_to_data
+    from vbt_tpu_torch.contract.schema import build_df_filename, build_track_df, max_travel_id
+    from vbt_tpu_torch.io.synthetic import (
+        plate_track_meters,
+        write_kinovea_export,
+        write_qualisys_export,
+    )
+
+    root = os.path.join(REPO, "out", "chip_smoke_groundtruth")
+    shutil.rmtree(root, ignore_errors=True)
+    df_dir = os.path.join(root, "dfs")
+    os.makedirs(df_dir)
+    df = build_track_df(tracks_to_data(tracks, fps=FPS))
+    df.to_pickle(os.path.join(df_dir, build_df_filename("synthetic_plate.mp4", max_travel_id(df),
+                                                        os.path.basename(CKPT))))
+    seconds = len(tracks["report"]) / FPS
+    for name, cli, write, hz, suffix in (("kinovea", kinovea, write_kinovea_export, 30, "txt"),
+                                         ("qualisys", qualisys, write_qualisys_export, 100, "tsv")):
+        export_dir = os.path.join(root, name)
+        os.makedirs(export_dir)
+        time_s = np.arange(1, int(seconds * hz) + 1) / hz
+        x, y = plate_track_meters(time_s, HEIGHT, WIDTH, period=PERIOD, fps=FPS,
+                                  plate_diameter=PLATE_DIAMETER)
+        write(os.path.join(export_dir, f"synthetic_plate.{suffix}"), time_s, x, y)
+        (r,) = run_validation(export_dir, df_dir, False, None, PLATE_DIAMETER, cli.CONFIG)
+        print(f"ground truth [{name}, {hz} Hz export]: MSE x {r.mse_x:.6g} m^2, y {r.mse_y:.6g} "
+              f"m^2; r_x {r.r_x:.6g} (x constant in the scene), r_y {r.r_y:.6f} "
+              f"(bound > {GT_R_Y_MIN[name]})")
+        if not (np.isfinite(r.mse_y) and r.r_y > GT_R_Y_MIN[name]):
+            raise AssertionError(f"ground truth [{name}]: r_y {r.r_y}")
+
+
+def _bf16_train_phase() -> None:
+    """Phase 14 (e): bfloat16 training against the CPU port, from scratch,
+    and its fused step beside float32's."""
+    import torch
+    from vbt_tpu_torch.models import get_model_spec
+    from vbt_tpu_torch.train.fused import DeviceDataTrainer
+    from vbt_tpu_torch.train.train_step import Trainer
+
+    spec = get_model_spec("efficientdet_lite0_whole")
+    _hold_bf16_step(spec)
+    runs = {}
+    for name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        trainer = Trainer(spec, base_lr=0.08 * TRAIN_BATCH / 64, total_steps=TRAIN_STEPS,
+                          warmup_steps=max(TRAIN_STEPS // 20, 1), input_size=TRAIN_SIZE,
+                          dtype=dtype, device="cuda")
+        ddt = DeviceDataTrainer(trainer, _train_data(TRAIN_IMAGES, 0), _train_data(16, 1))
+        runs[name] = [ddt, trainer.init_state(seed=0),
+                      torch.Generator(device="cuda").manual_seed(0)]
+    ddt, state, gen = runs["bfloat16"]
+    rng = np.random.default_rng(0)
+    metrics = []
+    t0 = time.perf_counter()
+    while len(metrics) < TRAIN_STEPS:
+        state, more, gen = ddt.epoch(state, rng, TRAIN_BATCH, gen,
+                                     max_batches=TRAIN_STEPS - len(metrics))
+        metrics += more
+    losses = torch.stack([m["loss"] for m in metrics]).cpu().numpy()
+    wall = time.perf_counter() - t0
+    val = ddt.val_loss(state)
+    first, last = float(losses[:5].mean()), float(losses[-5:].mean())
+    leaves = [*state.params.values(), *state.ema_params.values(), *state.batch_stats.values()]
+    dtypes = sorted({str(v.dtype) for v in leaves})
+    print(f"train from scratch in bf16, lite0 {TRAIN_SIZE}, B = {TRAIN_BATCH}, {len(losses)} fused "
+          f"steps in {wall:.2f} s: mean loss of the first 5 steps {first:.4f}, of the last 5 "
+          f"{last:.4f}; val_loss {val:.4f}; state dtypes {dtypes}; losses "
+          + " ".join(f"{v:.3f}" for v in losses))
+    if not (np.isfinite(losses).all() and np.isfinite(val) and last < first
+            and dtypes == ["torch.float32"]):
+        raise AssertionError(f"bf16 training: loss {first} -> {last}, state {dtypes}")
+    runs["bfloat16"][1:] = [state, gen]
+
+    idx = torch.arange(TRAIN_BATCH, device="cuda")
+    step_ms = {"bfloat16": [], "float32": []}
+    for name in ("float32", "bfloat16", "bfloat16", "float32") * 3:  # in turns
+        ddt, st, g = runs[name]
+        step_ms[name].append(_cuda_ms(lambda: ddt.step(st, idx, g, 0.5), reps=10, warmup=2))
+    for name in ("bfloat16", "float32"):
+        ddt, st, g = runs[name]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            ddt.step(st, idx, g, 0.5)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        busy_us, _ = _device_profile(lambda: ddt.step(st, idx, g, 0.5))
+        ms = float(np.median(step_ms[name]))
+        idle = f"{1 - busy_us / 1e3 / ms:.3f}" if busy_us else "not measured"
+        print(f"train step [{name}] ({_nvidia_smi()}): fused step median {ms:.3f} ms of "
+              + " / ".join(f"{t:.3f}" for t in step_ms[name])
+              + f" in turns ({TRAIN_BATCH / ms * 1e3:.1f} images/s); device busy "
+              f"{busy_us / 1e3:.3f} ms a step, idle share {idle}; peak memory "
+              f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above the "
+              f"{base / 2**30:.3f} GiB held before the steps)")
+    ratio = np.median(step_ms["bfloat16"]) / np.median(step_ms["float32"])
+    print(f"train step: bf16 takes {ratio:.3f}x the float32 step's time (medians)")
+
+
+def _shell_phase(pipe, frames, kernels) -> tuple[int, int]:
+    """Phase 14 (see the module docstring). Returns the K1 launches of the
+    probe's child and of the traced run."""
+    t_phase = time.perf_counter()
+    probe_launches = _probe_phase()
+    _cache_phase()
+    tracks, launches = _trace_phase(pipe, frames, kernels)
+    _groundtruth_phase(tracks)
+    _bf16_train_phase()
+    print(f"phase 14 (operational shell, ground truth, bf16 training) "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return probe_launches, launches["nms"]
 
 
 def _host_s(fn) -> float:

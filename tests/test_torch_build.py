@@ -1,10 +1,12 @@
 """The port's kernel build helper on the CPU: when a library counts as stale.
 
 Nothing is compiled here (no ``nvcc``): the test makes a source, a header and
-a library as empty temporary files and moves their modification times.
+a library as temporary files, stubs the toolchain (``nvcc --version`` and
+the compute capability) and changes the files' contents. A library is named
+by a hash of what it is built from (``_build.library_key``), so a changed
+source or header asks for a new library; the modification times play no
+part (``tests/test_torch_build_cache.py``).
 """
-
-import os
 
 import pytest
 
@@ -20,32 +22,28 @@ def tree(tmp_path, monkeypatch):
     build.mkdir()
     monkeypatch.setattr(_build, "CSRC", csrc)
     monkeypatch.setattr(_build, "BUILD_DIR", build)
-    src, header, other, lib = (csrc / "k.cu", csrc / "common.cuh", csrc / "other.cu",
-                               build / "libk.so")
+    monkeypatch.setattr(_build, "nvcc_version", lambda: "Cuda compilation tools, release 12.9")
+    monkeypatch.setattr(_build, "compute_capability", lambda: "sm_90")
+    src, header, other = csrc / "k.cu", csrc / "common.cuh", csrc / "other.cu"
     for path in (src, header, other):
-        path.write_text("")
-    return src, header, other, lib
-
-
-def _touch(path, t):
-    os.utime(path, (t, t))
+        path.write_text(f"// {path.name}\n")
+    return src, header, other
 
 
 @pytest.mark.parametrize("newer,stale", [
-    (None, False),       # the library is the newest file
+    (None, False),       # nothing it is built from changed
     ("src", True),       # its own .cu changed
     ("header", True),    # a .cuh it may include changed
     ("other", False),    # another kernel's .cu is not built into it
 ])
 def test_stale_looks_at_source_and_headers(tree, newer, stale):
-    src, header, other, lib = tree
+    src, header, other = tree
     assert _build._stale("k")  # no library yet
-    lib.write_text("")
-    for path in (src, header, other):
-        _touch(path, 1000)
-    _touch(lib, 2000)
+    _build.library_path("k").write_text("")
+    assert not _build._stale("k")
     if newer:
-        _touch({"src": src, "header": header, "other": other}[newer], 3000)
+        path = {"src": src, "header": header, "other": other}[newer]
+        path.write_text(path.read_text() + "// changed\n")
     assert _build._stale("k") is stale
 
 

@@ -235,6 +235,9 @@ def test_detect_images_batch_one_at_each_size(voc_dir, pipelines):
 
 
 def _cpu_pipelines(monkeypatch):
+    # The CLI serves on the card and probes it first; its pipelines are
+    # moved to the CPU here, so the probe of the card is turned off.
+    monkeypatch.setenv("VBT_TORCH_HEALTH_PROBE", "0")
     from_arg = DetectionPipeline.from_model_arg.__func__
     monkeypatch.setattr(DetectionPipeline, "from_model_arg", classmethod(
         lambda cls, m, device="cuda", **kw: from_arg(cls, m, device="cpu", **kw)))

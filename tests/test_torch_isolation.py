@@ -42,7 +42,8 @@ def test_import_loads_no_jax_or_reference_package():
                    "contract.parsers", "train.coco_eval", "train.evaluate", "cli.eval",
                    "train.losses", "train.targets", "train.augment", "train.data",
                    "train.train_step", "train.fused", "cli.train", "cli.data_prep",
-                   "cli.training_plot"):
+                   "cli.training_plot", "cli._groundtruth", "cli.kinovea", "cli.qualisys",
+                   "contract.golden", "utils.cache", "utils.health", "utils.profiling"):
         assert f"vbt_tpu_torch.{module}" in names.split(","), module
     assert bad == "", f"port imported {bad}"
 

@@ -11,10 +11,11 @@ the curves are drawn from the matched rows.
 
 The IoU matrix is vectorised float64 numpy with the arithmetic of the
 reference's scalar ``_iou``, where the JAX package takes it from its C++
-``hostops.iou_matrix``. The JAX CLI's TPU health probe is not ported: the
-port's probe of the card is a later item, and ``DetectionPipeline`` raises
-without a card. click, cv2, pandas, matplotlib, seaborn and sklearn are
-imported inside the functions that use them.
+``hostops.iou_matrix``. Before the first detection, as in the JAX CLI,
+:func:`create_detections_df` probes the card in a deadlined subprocess
+(:mod:`vbt_tpu_torch.utils.health`); ``DetectionPipeline`` raises without a
+card. click, cv2, pandas, matplotlib, seaborn and sklearn are imported
+inside the functions that use them.
 
 Usage: ``python -m vbt_tpu_torch.cli.eval --img_dir data/test
 --annotations_dir data/test --fig_dir figs/ models/efficientdet_lite0_whole.msgpack``
@@ -128,6 +129,13 @@ def create_detections_df(models, img_dir, annotations, export_path, device="cuda
     import pandas as pd
 
     from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
+    from vbt_tpu_torch.utils.cache import enable_persistent_cache
+    from vbt_tpu_torch.utils.health import require_healthy_device
+
+    # The only path of the CLI that touches the card: fail fast on a wedged
+    # one instead of hanging in the first detection.
+    enable_persistent_cache()
+    require_healthy_device(device, context="eval")
 
     img_files = sorted(glob.glob(f"{img_dir}/*.jpg"))
     detections = {}

@@ -11,9 +11,10 @@ The phase filter is retroactive (a later, larger rep can retire an earlier
 candidate), so live lines are provisional: a retired rep is announced, and
 the final summary is the offline phase list of the whole set.
 
-Not ported yet (``ROADMAP.md`` Queue 1, the operational shell): the JAX
-CLI's accelerator health probe and persistent compile cache before the
-session; the port builds its kernels at first use.
+Before it serves a model on the card, the session selects the kernel build
+cache and probes the card in a deadlined subprocess
+(:mod:`vbt_tpu_torch.utils.cache`, :mod:`vbt_tpu_torch.utils.health`), as
+the JAX CLI does before its session.
 
 Usage: ``python -m vbt_tpu_torch.cli.stream video.mp4`` (or a camera index
 such as ``0``).
@@ -42,12 +43,17 @@ def run_stream(src, model: str, detection_threshold: float, chunk_size: int,
 
     ``detector`` injects a prebuilt detection pipeline (tests use a
     deterministic pixel detector); by default the shipped weights named by
-    ``model`` are served on ``device`` as ``vbt-torch-track`` serves them."""
+    ``model`` are served on ``device`` as ``vbt-torch-track`` serves them,
+    after the card's health probe."""
     from vbt_tpu_torch.io.video import VideoReader
     from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
     from vbt_tpu_torch.runtime.streaming import StreamingPipeline
+    from vbt_tpu_torch.utils.cache import enable_persistent_cache
+    from vbt_tpu_torch.utils.health import require_healthy_device
 
     if detector is None:
+        enable_persistent_cache()
+        require_healthy_device(device, context="stream")  # fail fast on a wedged card
         detector = DetectionPipeline.from_model_arg(model, device=device)
     reader = VideoReader(src, batch_size=chunk_size,
                          lend=getattr(detector, "lend_frames", None))

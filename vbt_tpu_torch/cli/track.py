@@ -16,10 +16,13 @@ dataframe schema and filename grammar:
   the devices are every card of the machine (:func:`parallel.mesh.make_mesh`),
   in one process;
 - the detector runs on CUDA, bf16, with the NMS kernel
-  (:mod:`vbt_tpu_torch.runtime.pipeline`); without a card it raises.
-
-``--profile_dir`` (ROADMAP Queue 1 item 8) is refused with a usage error
-naming its item.
+  (:mod:`vbt_tpu_torch.runtime.pipeline`); without a card it raises;
+- before it touches the card, :func:`run` selects the kernel build cache
+  and probes the card in a deadlined subprocess
+  (:mod:`vbt_tpu_torch.utils.cache`, :mod:`vbt_tpu_torch.utils.health`);
+- ``--profile_dir DIR`` records the tracking of every SRC with
+  ``torch.profiler`` (:func:`vbt_tpu_torch.utils.profiling.trace`) into a
+  TensorBoard-loadable trace in DIR, the kernels' launches included.
 
 Precision: as in the JAX CLI, the scan runs in float32, so the exported
 ``dx, dy`` carry an early-track Kalman transient against a float64 run
@@ -45,17 +48,12 @@ from vbt_tpu_torch.contract.schema import build_df_filename, build_track_df, max
 from vbt_tpu_torch.io.video import VideoReader, VideoWriter, draw_bar_path, draw_bounding_box
 from vbt_tpu_torch.tracking import OCSort
 from vbt_tpu_torch.tracking.scan import ScanTrackerConfig, track_video
-from vbt_tpu_torch.utils.profiling import StageTimer
+from vbt_tpu_torch.utils.profiling import StageTimer, trace
 
 MAX_AGE = 30
 COLORS = [(115, 3, 252), (255, 255, 255)]
 D_CAP = 25  # detections per frame (NMS contract)
 TRACK_SLOTS = 16  # tracks reported per frame, as the JAX CLI's trackers
-
-NOT_PORTED = {
-    "--profile_dir": "ROADMAP.md Queue 1 item 8 (operational shell: profiling)",
-}
-
 
 def scan_config() -> ScanTrackerConfig:
     """The reference's tracker: OC-SORT, max_age 30, DIoU, IoU 0.1, 16 slots."""
@@ -286,44 +284,49 @@ def _export_df(data: dict, src: str, model: str, df_dir: str) -> None:
 
 def run(src, model, detection_treshold, df_dir, video_dir, display, frame_stride,
         batch_size, timing, tracker="scan", multi_clip=False, device="cuda",
-        time_shard=False):
+        time_shard=False, profile_dir=None):
     """The body of the CLI, callable without click. ``multi_clip`` and
     ``time_shard`` split over :func:`job_devices`. Each SRC is checked when
     its turn comes, so the videos before a missing one are tracked and
-    exported; ``multi_clip`` checks them all first."""
+    exported; ``multi_clip`` checks them all first. With ``profile_dir``
+    the tracking is traced into that directory."""
     from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
+    from vbt_tpu_torch.utils.cache import enable_persistent_cache
+    from vbt_tpu_torch.utils.health import require_healthy_device
 
+    enable_persistent_cache()
+    require_healthy_device(device, context="track")  # fail fast on a wedged card
     if df_dir is not None:
         os.makedirs(df_dir, exist_ok=True)
     if video_dir is not None:
         os.makedirs(video_dir, exist_ok=True)
     detector = DetectionPipeline.from_model_arg(model, device=device)
     timer = StageTimer()
-    if multi_clip and len(src) > 1:
-        for s in src:
-            if not os.path.isfile(s):
-                raise FileNotFoundError(s)
-        results = track_many(detector, list(src), detection_treshold, batch_size=batch_size,
-                             timer=timer)
-        if df_dir is not None:
-            for s, data in results.items():
-                if data["id"]:
+    with trace(profile_dir):
+        if multi_clip and len(src) > 1:
+            for s in src:
+                if not os.path.isfile(s):
+                    raise FileNotFoundError(s)
+            results = track_many(detector, list(src), detection_treshold,
+                                 batch_size=batch_size, timer=timer)
+            if df_dir is not None:
+                for s, data in results.items():
+                    if data["id"]:
+                        _export_df(data, s, model, df_dir)
+        else:
+            for s in src:
+                if not os.path.isfile(s):
+                    raise FileNotFoundError(s)
+                video_path = None
+                if video_dir is not None:
+                    video_path = os.path.join(video_dir,
+                                              f"{os.path.basename(s).split('.')[0]}.mp4")
+                data = track_one(detector, s, detection_treshold, tracker_kind=tracker,
+                                 video_path=video_path, display=display,
+                                 frame_stride=frame_stride, batch_size=batch_size, timer=timer,
+                                 time_shard=time_shard)
+                if df_dir is not None and data["id"]:
                     _export_df(data, s, model, df_dir)
-        if timing:
-            print(timer.report())
-        return
-    for s in src:
-        if not os.path.isfile(s):
-            raise FileNotFoundError(s)
-        video_path = None
-        if video_dir is not None:
-            video_path = os.path.join(video_dir, f"{os.path.basename(s).split('.')[0]}.mp4")
-        data = track_one(detector, s, detection_treshold, tracker_kind=tracker,
-                         video_path=video_path, display=display,
-                         frame_stride=frame_stride, batch_size=batch_size, timer=timer,
-                         time_shard=time_shard)
-        if df_dir is not None and data["id"]:
-            _export_df(data, s, model, df_dir)
     if timing:
         print(timer.report())
 
@@ -356,7 +359,7 @@ def make_command():
     @click.option("--batch_size", default=64, type=int, show_default=True,
                   help="Device frame batch size.")
     @click.option("--profile_dir", default=None, show_default=True,
-                  help="Device trace directory (not ported yet).")
+                  help="Device trace directory (torch.profiler, TensorBoard-loadable).")
     @click.option("--timing", is_flag=True, help="Print per-stage wall-clock accounting.")
     @click.option("--multi_clip", is_flag=True,
                   help="Track all SRC videos in one scan a card, a warp a clip, the clips split over the cards (no per-video video export in this mode).")
@@ -369,10 +372,9 @@ def make_command():
         and create a dataframe containing the detected objects their raw
         and filtered positions and velocities at specific times in the video."""
         del display_image_height, threads
-        if profile_dir is not None:
-            raise click.UsageError(f"--profile_dir is not ported yet: {NOT_PORTED['--profile_dir']}")
         run(src, model, detection_treshold, df_dir, video_dir, display, frame_stride,
-            batch_size, timing, tracker=tracker, multi_clip=multi_clip, time_shard=time_shard)
+            batch_size, timing, tracker=tracker, multi_clip=multi_clip, time_shard=time_shard,
+            profile_dir=profile_dir)
 
     return command
 

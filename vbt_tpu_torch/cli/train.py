@@ -14,9 +14,12 @@ batch of 32 images) and ``evaluate_model``, the better one exported to
 reads. Checkpoints are flax msgpack, loadable by both packages.
 
 Training runs on the card (``device="cuda"``, float32) and raises without
-one. The JAX CLI's TPU health probe and persistent compile cache belong to
-the operational shell (ROADMAP.md, Queue 1 item 8) and are not ported.
-click is imported inside :func:`make_command`, cv2 by the data loaders.
+one; before it touches the card, :func:`run` selects the kernel build
+cache and probes the card in a deadlined subprocess
+(:mod:`vbt_tpu_torch.utils.cache`, :mod:`vbt_tpu_torch.utils.health`), as
+the JAX CLI does. bfloat16 compute (``Trainer(dtype=torch.bfloat16)``) has
+no flag, as in the JAX CLI. click is imported inside :func:`make_command`,
+cv2 by the data loaders.
 
 Usage: ``python -m vbt_tpu_torch.cli.train --data_dir data --export_dir
 models --epochs 50 --batch_size 32``
@@ -166,6 +169,11 @@ def run(data_dir, export_dir, architecture, epochs, batch_size, train_whole_mode
     """The body of the CLI, callable without click: train, evaluate raw
     and EMA parameters on ``data_dir/test``, export the better one and
     write the log. Returns the evaluation results by tag."""
+    from vbt_tpu_torch.utils.cache import enable_persistent_cache
+    from vbt_tpu_torch.utils.health import require_healthy_device
+
+    enable_persistent_cache()
+    require_healthy_device(device, context="train")  # fail fast on a wedged card
     os.makedirs(export_dir, exist_ok=True)
     name = f"{architecture}_whole" if train_whole_model else architecture
     log_lines = []

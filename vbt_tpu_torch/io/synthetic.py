@@ -11,6 +11,9 @@ write them to a video.
 the ground truth of the detector's evaluation on them; :func:`write_voc`
 writes such frames and boxes as a PASCAL-VOC directory (JPG and XML, cv2
 imported inside) for the evaluation and training CLIs.
+:func:`plate_track_meters` is the disc's trajectory in meters, which
+:func:`write_kinovea_export` and :func:`write_qualisys_export` write in the
+two ground-truth formats of the validation CLIs.
 
 :func:`plate_detections` and :func:`crossing_detections` are tracker
 inputs without a detector: per-frame detection rows of plates moving up
@@ -84,6 +87,46 @@ def write_voc(root, sizes, n: int = 2, period: int = 5) -> None:
                 for label, b in (("barbell", box), ("person", [0, 0, h // 4, w // 4])))
             with open(os.path.join(root, f"{name}.xml"), "w") as f:
                 f.write(f"<annotation><filename>{name}.jpg</filename>{objects}</annotation>")
+
+
+def plate_track_meters(time: np.ndarray, height: int, width: int, period: int = 32,
+                       fps: float = 30.0, plate_diameter: float = 0.45):
+    """The disc's center in meters, y up, at ``time`` seconds on a tracking
+    dataframe's clock (frame ``t`` at ``(t + 1) / fps``) of the frames
+    :func:`plate_frames` draws at this size; the disc's diameter is
+    ``plate_diameter``. Returns (x, y), float64."""
+    t = np.asarray(time, np.float64) * fps - 1
+    cy = height * (0.5 + PLATE_AMPLITUDE * np.sin(2 * np.pi * t / period))
+    meters = plate_diameter / (2 * PLATE_RADIUS * height)  # per pixel
+    return np.full_like(cy, width / 2 * meters), -cy * meters
+
+
+def write_kinovea_export(path, time, x, y) -> None:
+    """A Kinovea trajectory export of (time s, x m, y m): ``#`` comments,
+    space-delimited ``T X Y`` rows, x and y in centimetres with comma
+    decimals."""
+    with open(path, "w") as f:
+        f.write("# Kinovea Trajectory data export\n# T X Y\n")
+        for t, xv, yv in zip(time, x, y):
+            cm = f"{100 * xv:.6f} {100 * yv:.6f}".replace(".", ",")
+            f.write(f"{t:.6f} {cm}\n")
+
+
+def write_qualisys_export(path, time, x, y, frequency: int = 100) -> None:
+    """A Qualisys motion-capture tsv of (time s, x m, y m) for the marker
+    ``Osa L``: 11 header rows, tab-delimited, millimetres, x negated, y the
+    Z column."""
+    header = [("NO_OF_FRAMES", len(time)), ("NO_OF_CAMERAS", 12), ("NO_OF_MARKERS", 1),
+              ("FREQUENCY", frequency), ("NO_OF_ANALOG", 0), ("ANALOG_FREQUENCY", 0),
+              ("DESCRIPTION", "--"), ("TIME_STAMP", "2026-01-01, 00:00:00"),
+              ("DATA_INCLUDED", "3D"), ("MARKER_NAMES", "Osa L"),
+              ("TRAJECTORY_TYPES", "Measured")]
+    with open(path, "w") as f:
+        for key, value in header:
+            f.write(f"{key}\t{value}\n")
+        f.write("Frame\tTime\tOsa L X\tOsa L Y\tOsa L Z\n")
+        for i, (t, xv, yv) in enumerate(zip(time, x, y)):
+            f.write(f"{i + 1}\t{t:.5f}\t{-1000 * xv:.4f}\t250.0000\t{1000 * yv:.4f}\n")
 
 
 def pad_detections(frames: list[np.ndarray], d_cap: int) -> tuple[np.ndarray, np.ndarray]:

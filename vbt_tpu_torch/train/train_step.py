@@ -20,9 +20,16 @@ optimizer is the optax chain of the JAX package, written on tensors
 
 The parameter EMA uses ``decay = min(0.9998, (1 + t) / (10 + t))`` over
 the parameters only. Training runs in float32 (TF32 off on the card,
-``utils.device.resolve_device``), or in float64, the precision in which
-the tests hold a step against JAX's; JAX's bfloat16 compute dtype is not
-ported and raises.
+``utils.device.resolve_device``), in float64, the precision in which the
+tests hold a step against JAX's, or with ``dtype=torch.bfloat16`` in flax's
+compute-dtype sense (``EfficientDet(spec, dtype=jnp.bfloat16)``):
+parameters, optimizer state, EMA and running statistics stay float32;
+every convolution casts its input, kernel and bias to bfloat16 and computes
+in it; train-mode BatchNorm reduces its statistics in float32 from the
+bfloat16 activations, normalizes in float32 with its float32 scale and
+bias and rounds the result to bfloat16 (flax's ``BatchNorm(dtype=bf16)``);
+the losses take the logits and box outputs in float32. The gradients come
+back float32 through the casts.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ from torch.func import functional_call
 
 from vbt_tpu_torch.models import EfficientDet, ModelSpec
 from vbt_tpu_torch.models.anchors import generate_anchors
+from vbt_tpu_torch.models.conv import Conv2dSame
 from vbt_tpu_torch.models.efficientdet import init_parameters
 from vbt_tpu_torch.train.losses import detection_loss
 from vbt_tpu_torch.train.targets import assign_targets
@@ -44,6 +52,7 @@ from vbt_tpu_torch.utils.device import resolve_device
 
 MAX_GRAD_NORM = 10.0
 MOMENTUM = 0.9
+DTYPES = (torch.float32, torch.float64, torch.bfloat16)  # compute dtypes
 
 
 class OptState(NamedTuple):
@@ -147,24 +156,30 @@ def ema_decay_at(step: int, ema_decay: float) -> tuple[float, float]:
 
 class Trainer:
     """Owns the model, anchors, optimizer and the step functions, on one
-    device (``"cuda"`` unless the caller asks for the CPU)."""
+    device (``"cuda"`` unless the caller asks for the CPU). ``dtype`` is the
+    compute dtype; the state is float32 under bfloat16 compute, else
+    ``dtype``."""
 
     def __init__(self, spec: ModelSpec, base_lr: float = 0.08, total_steps: int = 1000,
                  warmup_steps: int = 100, dtype: torch.dtype = torch.float32,
                  input_size: int | None = None, ema_decay: float = 0.9998,
                  freeze_top_keys: tuple = (), device: str | torch.device = "cuda"):
-        if dtype not in (torch.float32, torch.float64):
-            raise NotImplementedError(
-                f"training runs in float32 (or float64); dtype={dtype} (JAX's bfloat16 compute "
-                "dtype) is not ported (ROADMAP.md, Queue 1 item 8)")
+        if dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
         self.dtype = dtype
+        self.state_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
         self.device = resolve_device(device)
         self.ema_decay = ema_decay
         self.freeze_top_keys = tuple(freeze_top_keys)
         self.spec = spec
         self.input_size = input_size or spec.input_size
-        self.model = EfficientDet(spec, frozen=self.freeze_top_keys).to(self.device, dtype)
+        self.model = EfficientDet(spec, frozen=self.freeze_top_keys).to(self.device,
+                                                                        self.state_dtype)
         self.param_keys = [k for k, _ in self.model.named_parameters()]
+        # The convolutions' kernels and biases, cast to the compute dtype
+        # (BatchNorm's scale and bias stay in the state's).
+        self.conv_keys = {f"{name}.{k}" for name, m in self.model.named_modules()
+                          if isinstance(m, Conv2dSame) for k, _ in m.named_parameters()}
         self.trainable = [k for k, p in self.model.named_parameters() if p.requires_grad]
         cfg = spec.anchor_config
         if self.input_size != cfg.input_size:
@@ -182,7 +197,8 @@ class Trainer:
     def state_from(self, state_dict: dict) -> TrainState:
         """A fresh train state (step 0, zero trace, EMA = params) from a
         model ``state_dict``, moved to the trainer's device."""
-        sd = {k: v.detach().to(self.device, self.dtype).clone() for k, v in state_dict.items()}
+        sd = {k: v.detach().to(self.device, self.state_dtype).clone()
+              for k, v in state_dict.items()}
         params = {k: sd[k] for k in self.param_keys}
         stats = {k: v for k, v in sd.items() if k not in params}
         return TrainState(0, params, stats, self.tx.init(params),
@@ -191,6 +207,12 @@ class Trainer:
     def is_frozen(self, key: str) -> bool:
         """Whether ``key`` (a state_dict key) lies in a frozen subtree."""
         return key.split(".")[0] in self.freeze_top_keys
+
+    def _compute(self, params: dict) -> dict:
+        """The convolutions' parameters in the compute dtype (a no-op but
+        under bfloat16); differentiable, so gradients come back in the
+        state's dtype."""
+        return {k: v.to(self.dtype) if k in self.conv_keys else v for k, v in params.items()}
 
     def train_step(self, state: TrainState, batch: dict):
         """batch: images (B, 3, S, S) float32 normalized, gt_boxes (B, G, 4)
@@ -205,7 +227,8 @@ class Trainer:
         stats = {k: (v if self.is_frozen(k) else v.clone()) for k, v in state.batch_stats.items()}
         self.model.train()
         images = batch["images"].to(self.dtype)
-        deltas, logits = functional_call(self.model, {**params, **stats}, (images,))
+        deltas, logits = functional_call(self.model, {**self._compute(params), **stats},
+                                         (images,))
         total, metrics = detection_loss(deltas, logits, box_t, cls_t, pos, ign)
         grads = dict(zip(self.trainable,
                          torch.autograd.grad(total, [params[k] for k in self.trainable])))
@@ -226,7 +249,7 @@ class Trainer:
     def eval_forward(self, state: TrainState, images: torch.Tensor):
         """(deltas, logits) with the running statistics; no update."""
         self.model.eval()
-        return functional_call(self.model, {**state.params, **state.batch_stats},
+        return functional_call(self.model, {**self._compute(state.params), **state.batch_stats},
                                (images.to(self.dtype),))
 
     def eval_loss(self, state: TrainState, batch: dict) -> dict:

@@ -1,5 +1,10 @@
-"""Wall-clock stage accounting for host orchestration (decode, detect,
-tracker, dataframe). Copy of ``vbt_tpu.utils.profiling.StageTimer``."""
+"""Tracing and profiling, the port of ``vbt_tpu.utils.profiling``:
+
+- :class:`StageTimer`, wall-clock stage accounting for host orchestration
+  (decode, detect, tracker, dataframe);
+- :func:`trace`, a ``torch.profiler`` trace of the CPU and the card written
+  as a TensorBoard-loadable file, the counterpart of ``jax.profiler``'s.
+"""
 
 from __future__ import annotations
 
@@ -38,3 +43,23 @@ class StageTimer:
             n = self.counts[name]
             lines.append(f"{name}: {total:.3f}s total, {n} calls, {total / n * 1e3:.1f} ms/call")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None):
+    """Record the CPU and, where there is a card, its CUDA activity inside
+    the block with ``torch.profiler`` and write the trace into ``log_dir``
+    (``torch.profiler.tensorboard_trace_handler``: one
+    ``<worker>.<time>.pt.trace.json`` that TensorBoard's profiler plugin and
+    ``chrome://tracing`` open); no-op without a directory."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield
