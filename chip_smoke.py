@@ -136,7 +136,27 @@ Phases, each of which raises on failure:
    devices' own bf16-against-float32 distances), phase 13's recipe from
    scratch in bf16 (the loss falls), and the fused step in bf16 and in
    float32 in turns (median of 6 each): time, images/s, idle share and peak
-   memory.
+   memory;
+15. checkpoint selection and the host SORT: (a) the
+   host ``SortTracker`` (max_age 30, IoU 0.1) and K3 with
+   ``ScanTrackerConfig.sort`` on phase 4's 256 frames of detections, with
+   every count at 0 before and read after (K3 once): the same ids and rows,
+   positions and plate sizes within ``ROW_ATOL``, dx/dy within
+   ``HOST_DXDY_ATOL``, both times printed, and K3-SORT against its plain
+   version on CPU copies as in phase 3; (b) the tools of
+   ``vbt_tpu_torch.tools`` on a VOC directory written by ``write_voc``
+   (15 test images at phase 12's five sizes, 8 train images):
+   ``ckpt_sweep`` over phase 13's checkpoint and a second step trained from
+   it, ``ckpt_soup --top_k 3 --out`` on that sweep's log, the soup reloaded
+   through ``DetectionPipeline`` and equal bit for bit to the float64
+   average of its members computed on the CPU; ``ckpt_soup --top_k 3
+   --seed_msgpack`` the shipped lite0 over the same checkpoints, each KEEP
+   or drop held to the gate's rule on its printed metric and at least one
+   drop (the seed's AP is far above the 30-step checkpoints'); and
+   ``int8_delta`` on the shipped lite0 with ``--calib_n 8`` (its exit code
+   the gate's rule); K1's count set to 0 before and read after each tool,
+   held to one launch a batch of 32 images an evaluation (4, 3, 4 and 2
+   here).
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -769,8 +789,8 @@ def _stream_path(pipe, frames, kernels, offline) -> dict:
     return {"fps": len(frames) / wall, "launches": launches, "spans_ms": spans}
 
 
-def _compare_track_data(lane, scan, host) -> float:
-    """The scan tracker's and the host OC-SORT's columnar capture dicts: the
+def _compare_track_data(lane, scan, host, host_name="OC-SORT") -> float:
+    """The scan tracker's and the host tracker's columnar capture dicts: the
     same ids, times and row order; positions and plate sizes within
     ROW_ATOL, dx/dy within HOST_DXDY_ATOL. Returns the max |d dx/dy|."""
     if scan["id"] != host["id"] or scan["time"] != host["time"]:
@@ -779,7 +799,7 @@ def _compare_track_data(lane, scan, host) -> float:
     err = {c: float(np.abs(np.subtract(scan[c], host[c])).max()) if scan[c] else 0.0
            for c in ("x", "y", "norm_plate_height", "norm_plate_width", "dx", "dy")}
     row_err, dxdy_err = max(err[c] for c in list(err)[:4]), max(err["dx"], err["dy"])
-    print(f"main path [{lane}]: scan (K3, float32) vs host OC-SORT (float64): "
+    print(f"main path [{lane}]: scan (K3, float32) vs host {host_name} (float64): "
           f"{len(scan['id'])} rows, ids equal, max |d| x/y/plate {row_err:.3g}, "
           f"dx/dy {dxdy_err:.3g}")
     if row_err > ROW_ATOL or dxdy_err > HOST_DXDY_ATOL:
@@ -1134,6 +1154,9 @@ def main(argv=None) -> int:
     # 14. The operational shell, the ground-truth CLIs and bf16 training.
     records[0]["probe_launches"], records[0]["trace_launches"] = _shell_phase(pipe, frames,
                                                                              kernels)
+    # 15. Checkpoint selection and the host SORT.
+    records[0]["tools_launches"], records[2]["sort_launches"] = _selection_phase(
+        frames, xla, kernels)
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2192,6 +2215,186 @@ def _shell_phase(pipe, frames, kernels) -> tuple[int, int]:
     print(f"phase 14 (operational shell, ground truth, bf16 training) "
           f"{time.perf_counter() - t_phase:.1f} s")
     return probe_launches, launches["nms"]
+
+
+def _sort_hold(xla, kernels) -> int:
+    """Phase 15 (a): the host SORT against K3 with the SORT flags on the
+    main path's detections. Returns K3's launches."""
+    import torch
+    from vbt_tpu_torch.cli.track import run_host_tracker, run_scan_tracker, tracks_to_data
+    from vbt_tpu_torch.tracking import SortTracker
+    from vbt_tpu_torch.tracking.scan import track_video
+
+    cfg = _k3_cfg("sort", max_age=30, iou_threshold=0.1, max_tracks=16)
+    rows, valid = xla["rows"], xla["valid"]
+    run_scan_tracker(rows[:BATCH], valid[:BATCH], "cuda", cfg=cfg)  # first launch
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    scan = run_scan_tracker(rows, valid, "cuda", cfg=cfg)
+    t_scan = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    want = {"nms": 0, "fused_mbconv": 0, "track_scan": 1, "analysis_scan": 0}
+    if launches != want:
+        raise AssertionError(f"sort: launches {launches}, want {want}")
+    t0 = time.perf_counter()
+    host = run_host_tracker(rows, valid, SortTracker(max_age=30, iou_threshold=0.1))
+    t_host = time.perf_counter() - t0
+    _compare_track_data("sort", tracks_to_data(scan, fps=FPS), tracks_to_data(host, fps=FPS),
+                        host_name="SORT")
+    dets = torch.from_numpy(np.ascontiguousarray(rows, np.float32)).cuda()
+    mask = torch.from_numpy(np.ascontiguousarray(valid)).cuda()
+    k3_ms = _cuda_ms(lambda: track_video(cfg, dets, mask), reps=10)
+    print(f"sort: {len(rows)} frames: K3 (SORT flags) {k3_ms:.4f} ms by CUDA events, "
+          f"{t_scan * 1e3:.3f} ms by the host clock with upload and readback; host SORT "
+          f"{t_host * 1e3:.3f} ms ({_nvidia_smi()})")
+    _hold_k3("main path detections, sort", cfg, rows[None], valid[None],
+             np.ones((1, len(rows)), bool))
+    return launches["track_scan"]
+
+
+def _count_nms(kernels, label, want, fn):
+    """Run ``fn`` with K1's count at 0 and hold the count to ``want``."""
+    kernels["nms"].launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    wall = time.perf_counter() - t0
+    got = kernels["nms"].launches
+    print(f"{label}: {wall:.2f} s, NMS {got} launches")
+    if got != want:
+        raise AssertionError(f"{label}: NMS launched {got} times, want {want}")
+    return out, got
+
+
+def _hold_soup_decisions(lines: str, members, final, seed) -> None:
+    """Phase 15 (b): the soup seeded with the shipped lite0 over phase 13's
+    30-step checkpoints. Each ``+`` line's KEEP or drop must follow the
+    gate's rule on its printed metric (keep when it does not drop below the
+    best so far; a tie within the printed 4 decimals is not judged), at
+    least one candidate must be dropped, the members must be the seed and
+    the kept lines, and a soup of the seed alone must be the seed's weights
+    bit for bit."""
+    import torch
+
+    lines = lines.splitlines()
+    best = float(lines[0].split()[-1])
+    kept, drops = [], 0
+    for line in lines[1:]:
+        if not line.startswith("+ "):
+            continue
+        words = line.split()
+        value, keep = float(words[words.index("->") + 3]), words[-1] == "[KEEP]"
+        if abs(value - best) >= 1e-4 and keep != (value >= best):
+            raise AssertionError(f"soup: {line!r} against the best {best}")
+        if keep:
+            best = value
+            step, tag = words[1].split("/")
+            kept.append((int(step), tag))
+        drops += not keep
+    if drops == 0 or list(members[1:]) != kept or members[0][1] != "seed":
+        raise AssertionError(f"soup from the seed: members {members}, kept {kept}, "
+                             f"{drops} drops")
+    if len(members) == 1 and not all(torch.equal(final[k], seed[k].float()) for k in final):
+        raise AssertionError("a soup of the seed alone differs from the seed")
+    print(f"soup from the seed: {drops} of {drops + len(kept)} candidates dropped, members "
+          f"{members}, each decision the gate's rule")
+
+
+def _selection_phase(frames, xla, kernels) -> tuple[dict, int]:
+    """Phase 15 (see the module docstring). Returns K1's launches by tool
+    and K3's in (a)."""
+    import io
+    import shutil
+
+    import torch
+    from vbt_tpu_torch.io.synthetic import write_voc
+    from vbt_tpu_torch.runtime.checkpoint import (
+        load_checkpoint,
+        load_params,
+        load_train_checkpoint,
+        save_train_checkpoint,
+    )
+    from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
+    from vbt_tpu_torch.tools import ckpt_soup, ckpt_sweep, int8_delta
+    from vbt_tpu_torch.train.evaluate import EVAL_BATCH
+
+    t_phase = time.perf_counter()
+    sort_launches = _sort_hold(xla, kernels)
+
+    # (b) The tools on a VOC directory and phase 13's run.
+    arch = "efficientdet_lite0"
+    work = os.path.join(REPO, "out", "chip_smoke_tools")
+    shutil.rmtree(work, ignore_errors=True)
+    voc, ckpt = os.path.join(work, "voc"), os.path.join(work, "ckpt")
+    sizes = ((240, 320), (360, 480), (288, 512), (480, 640), (720, 1280))
+    for part, part_sizes, n in (("train", sizes[:4], 2), ("test", sizes, 3)):
+        os.makedirs(os.path.join(voc, part))
+        write_voc(os.path.join(voc, part), part_sizes, n=n)
+    n_test = len(sizes) * 3
+    per_eval = -(-n_test // EVAL_BATCH)
+    os.makedirs(ckpt)
+    shutil.copy(os.path.join(REPO, "out", "chip_smoke_train", "step_00000001.msgpack"), ckpt)
+    trainer, template = ckpt_sweep.selection_trainer(arch, "cuda")
+    state = load_train_checkpoint(ckpt, 1, template)
+    state, _ = trainer.train_step(state, _check_batches()["cuda"])
+    save_train_checkpoint(ckpt, 2, state)
+
+    launches = {}
+    out = io.StringIO()
+    _, launches["sweep"] = _count_nms(kernels, "ckpt_sweep, 2 checkpoints x raw/ema",
+                                      4 * per_eval, lambda: ckpt_sweep.sweep(
+                                          arch, ckpt, voc, device="cuda", out=out))
+    print(out.getvalue(), end="")
+    log = os.path.join(work, "sweep.txt")
+    with open(log, "w") as f:
+        f.write(out.getvalue())
+    soup_path = os.path.join(work, f"{arch}.msgpack")
+    out = io.StringIO()
+    (final, members, _), launches["soup"] = _count_nms(
+        kernels, "ckpt_soup --top_k 3", 3 * per_eval, lambda: ckpt_soup.soup(
+            arch, ckpt, log, top_k=3, data_dir=voc, out=soup_path, device="cuda", stream=out))
+    print(out.getvalue(), end="")
+    cpu_trainer, cpu_template = ckpt_sweep.selection_trainer(arch, "cpu")
+    total = None
+    for step, tag in members:
+        v = cpu_trainer.variables(load_train_checkpoint(ckpt, step, cpu_template),
+                                  use_ema=tag == "ema")
+        v = {k: t.to(torch.float64) for k, t in v.items()}
+        total = v if total is None else {k: total[k] + v[k] for k in total}
+    average = {k: (t / len(members)).to(torch.float32) for k, t in total.items()}
+    soup_pipe = DetectionPipeline.from_model_arg(soup_path, device="cuda")
+    saved = load_checkpoint(soup_path)
+    same = (saved.keys() == average.keys() == final.keys()
+            and all(torch.equal(saved[k], average[k]) and torch.equal(final[k], average[k])
+                    and torch.equal(soup_pipe.weights[k], average[k]) for k in average))
+    det = soup_pipe.detect_batch(frames[:2])
+    print(f"soup of {members}: file {os.path.getsize(soup_path)} bytes, reloaded through "
+          f"DetectionPipeline: {'bit for bit' if same else 'DIFFERS from'} the float64 average "
+          f"on the CPU; detect_batch counts {det.count.tolist()}")
+    if not same:
+        raise AssertionError("the soup is not the float64 average of its members")
+    out = io.StringIO()
+    (final, members, _), launches["soup_seed"] = _count_nms(
+        kernels, "ckpt_soup --seed_msgpack lite0 --top_k 3", 4 * per_eval,
+        lambda: ckpt_soup.soup(arch, ckpt, log, top_k=3, data_dir=voc, seed_msgpack=CKPT,
+                               device="cuda", stream=out))
+    print(out.getvalue(), end="")
+    _hold_soup_decisions(out.getvalue(), members, final, load_params(CKPT, final))
+
+    out, err = io.StringIO(), io.StringIO()
+    (code, m_float, m_int8), launches["int8_delta"] = _count_nms(
+        kernels, "int8_delta --calib_n 8", 2 * per_eval, lambda: int8_delta.int8_delta(
+            CKPT, voc, calib_n=8, device="cuda", out=out, err=err))
+    print(out.getvalue() + err.getvalue(), end="")
+    delta75 = m_int8["AP75"] - m_float["AP75"]
+    if code != int(delta75 < -0.01) or not m_float["AP50"] > 0.9:
+        raise AssertionError(f"int8_delta: exit code {code} for AP75 delta {delta75}, "
+                             f"float {m_float}")
+
+    print(f"phase 15 (checkpoint selection, host SORT) "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, sort_launches
 
 
 def _host_s(fn) -> float:

@@ -361,6 +361,29 @@ def test_scan_tracker_of_the_cli_launches_kernel(dev):
     assert set(got["track_id"][got["report"]]) == set(host["track_id"][host["report"]])
 
 
+def test_scan_sort_on_the_card_matches_host_sort(dev):
+    """K3 with the SORT flags against the host ``SortTracker`` (float64):
+    the same rows and ids, boxes within 1e-6 (``chip_smoke.py``'s
+    ``ROW_ATOL``), dx/dy within 1e-2 (its ``HOST_DXDY_ATOL``)."""
+    from vbt_tpu_torch.cli.track import run_host_tracker, run_scan_tracker
+    from vbt_tpu_torch.io.synthetic import plate_detections
+    from vbt_tpu_torch.ops.track_scan_cuda import track_scan
+    from vbt_tpu_torch.tracking import SortTracker
+    from vbt_tpu_torch.tracking.scan import ScanTrackerConfig
+
+    dets, valid = plate_detections(120, 1, miss={30, 31, 32}, seed=9, d_cap=25)
+    cfg = ScanTrackerConfig.sort(max_age=30, iou_threshold=0.1, max_tracks=16)
+    before = track_scan.launches
+    got = run_scan_tracker(dets, valid, dev, cfg=cfg)
+    assert track_scan.launches == before + 1
+    want = run_host_tracker(dets, valid, SortTracker(max_age=30, iou_threshold=0.1))
+    np.testing.assert_array_equal(got["report"], want["report"])
+    rep = want["report"]
+    np.testing.assert_array_equal(got["track_id"][rep], want["track_id"][rep])
+    np.testing.assert_allclose(got["box"][rep], want["box"][rep], atol=1e-6, rtol=0)
+    np.testing.assert_allclose(got["dxdy"][rep], want["dxdy"][rep], atol=1e-2, rtol=0)
+
+
 def test_upload_ring_on_the_card_equals_plain_copy(dev):
     from vbt_tpu_torch.runtime.upload import RING_DEPTH, StagingRing
 

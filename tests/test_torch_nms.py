@@ -5,25 +5,44 @@ the class-aware ``detection_postprocess`` against the XLA one.
 
 Tolerances are those of tests/test_ops.py: count exact, scores 1e-6 (one
 sigmoid, computed by XLA on one side and torch on the other), boxes 1e-5
-(one exp in the decode, normalized coordinates)."""
+(one exp in the decode, normalized coordinates).
+
+The pipeline's ``prefilter`` option, ``"exact"`` and ``"approx"``, on the
+shipped lite0: the port serves the exact top-K for every name (the option is
+only stored), so the one port pipeline is held against JAX's pipeline of
+each prefilter: JAX's head outputs through the port's kernel lane within
+these bounds, and the whole ``detect_batch`` within the bounds of two
+forwards (``tests/test_torch_eval.py``: scores 3e-5, boxes 1e-5). On the
+JAX side ``"approx"`` equals ``"exact"`` bit for bit (``lax.approx_max_k``
+is the exact top-K off the TPU)."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import dataclasses  # noqa: E402
+import os  # noqa: E402
+
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from vbt_tpu.models.anchors import AnchorConfig, generate_anchors  # noqa: E402
 from vbt_tpu.ops.nms_pallas import detection_postprocess_pallas  # noqa: E402
 from vbt_tpu.ops.postprocess import detection_postprocess as jax_postprocess  # noqa: E402
+from vbt_tpu.runtime.pipeline import DetectionPipeline as JaxPipeline  # noqa: E402
+from vbt_tpu_torch.io.synthetic import plate_frames  # noqa: E402
 from vbt_tpu_torch.ops.nms_cuda import detection_postprocess_cuda, nms  # noqa: E402
 from vbt_tpu_torch.ops.postprocess import (  # noqa: E402
     detection_postprocess,
     iou_matrix,
     nms_plain,
 )
+from vbt_tpu_torch.runtime.pipeline import DetectionPipeline  # noqa: E402
 
+CKPT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "models",
+                    "efficientdet_lite0_whole.msgpack")
+PREFILTERS = ("exact", "approx")
 ANCHORS = generate_anchors(AnchorConfig(input_size=320))
 N = ANCHORS.shape[0]
 
@@ -212,3 +231,54 @@ def test_iou_matrix_basic():
     assert m[0, 1].item() == pytest.approx(0.25)
     assert m[2, 2].item() == 0.0  # zero union guard
 
+
+@pytest.fixture(scope="module")
+def prefilter_lanes():
+    """Each prefilter's JAX pipeline (the Pallas NMS in interpret mode) and
+    its detections, the port pipeline (CPU, the NMS kernel's lane: its wrapper runs
+    ``nms_plain`` on CPU tensors) and two synthetic plate frames."""
+    frames = plate_frames(2, 240, 320, seed=0, period=5)
+    exact = JaxPipeline.from_model_arg(CKPT)
+    jax_pipes = {p: dataclasses.replace(exact, prefilter=p) for p in PREFILTERS}
+    jax_dets = {p: jpipe.detect_batch(jnp.asarray(frames)) for p, jpipe in jax_pipes.items()}
+    pipe = DetectionPipeline.from_model_arg(CKPT, device="cpu")
+    pipe.use_kernel = True
+    return frames, jax_pipes, jax_dets, pipe
+
+
+def _numpy(det):
+    return [np.asarray(f) for f in (det.count, det.scores, det.boxes)]
+
+
+@pytest.mark.parametrize("prefilter", PREFILTERS)
+def test_pipeline_prefilter_matches_pallas(prefilter_lanes, prefilter):
+    frames, jax_pipes, jax_dets, pipe = prefilter_lanes
+    jpipe = jax_pipes[prefilter]
+    deltas, logits = jpipe._forward(jpipe.variables, jnp.asarray(frames))
+    got = pipe.postprocess(torch.from_numpy(np.array(deltas, np.float32)),
+                           torch.from_numpy(np.array(logits, np.float32)))
+    want = jpipe._post(deltas, logits)
+    _assert_same(got, want)
+    assert int(got.count.min()) >= 1  # the plate is found in both frames
+    got, want = pipe.detect_batch(frames), jax_dets[prefilter]
+    np.testing.assert_array_equal(got.count.numpy(), np.asarray(want.count))
+    np.testing.assert_allclose(got.scores.numpy(), np.asarray(want.scores), atol=3e-5, rtol=0)
+    np.testing.assert_allclose(got.boxes.numpy(), np.asarray(want.boxes), atol=1e-5, rtol=0)
+
+
+def test_approx_prefilter_equals_exact(prefilter_lanes):
+    jax_dets = prefilter_lanes[2]
+    exact, approx = (_numpy(jax_dets[p]) for p in PREFILTERS)
+    for a, b in zip(exact, approx):
+        np.testing.assert_array_equal(a, b)
+    logits = jax.random.normal(jax.random.PRNGKey(0), (4, 19206), jnp.float32)
+    for a, b in zip(jax.lax.approx_max_k(logits, 512), jax.lax.top_k(logits, 512)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_pipeline_takes_any_prefilter_name():
+    """As in JAX, no prefilter name is refused; it is stored and every name
+    serves the exact top-K."""
+    for name in ("exact", "approx", "bogus"):
+        assert DetectionPipeline.from_model_arg(CKPT, device="cpu",
+                                                prefilter=name).prefilter == name

@@ -107,26 +107,30 @@ def collect_detections(detector, src: str, threshold: float, batch_size: int = 6
 
 
 def run_scan_tracker(dets: np.ndarray, valid: np.ndarray, device="cuda",
-                     time_shard: bool = False) -> dict:
+                     time_shard: bool = False, cfg=None) -> dict:
     """Pass 2: one scan over the frame axis in float32 on ``device`` (kernel
-    K3 on the card, the plain version on the CPU). With ``time_shard`` the
-    frame axis is cut into one chunk for each of :func:`job_devices` and the
+    K3 on the card, the plain version on the CPU) with ``cfg`` (default
+    :func:`scan_config`, the CLI's OC-SORT). With ``time_shard`` the frame
+    axis is cut into one chunk for each of :func:`job_devices` and the
     tracker state relayed from chunk to chunk; the output is the same."""
+    cfg = cfg or scan_config()
     if time_shard:
         from vbt_tpu_torch.parallel.time_shard import track_video_time_sharded
 
-        out = track_video_time_sharded(scan_config(), torch.as_tensor(dets, dtype=torch.float32),
+        out = track_video_time_sharded(cfg, torch.as_tensor(dets, dtype=torch.float32),
                                        torch.as_tensor(valid), job_devices(device))
     else:
-        out = track_video(scan_config(),
+        out = track_video(cfg,
                           torch.as_tensor(dets, dtype=torch.float32, device=device),
                           torch.as_tensor(valid, device=device))
     return _tracks_numpy(out)
 
 
-def run_host_tracker(dets: np.ndarray, valid: np.ndarray) -> dict:
-    """Reference-exact per-frame OC-SORT loop (max_age 30, DIoU, IoU 0.1)."""
-    tracker = OCSort(max_age=MAX_AGE, asso_func="diou", iou_threshold=0.1)
+def run_host_tracker(dets: np.ndarray, valid: np.ndarray, tracker=None) -> dict:
+    """Reference-exact per-frame loop of a host tracker with the
+    ``update(dets, _)`` surface; by default the CLI's OC-SORT (max_age 30,
+    DIoU, IoU 0.1)."""
+    tracker = tracker or OCSort(max_age=MAX_AGE, asso_func="diou", iou_threshold=0.1)
     t_frames = dets.shape[0]
     s = TRACK_SLOTS
     report = np.zeros((t_frames, s), bool)

@@ -7,7 +7,9 @@ imported inside the functions that build dataframes:
 - rows sorted by ``(id, time)`` with the per-frame insertion index kept;
 - the filename ``{video}_id{N}_{model}.pkl.gz``, where ``N`` is the track
   id with the largest cumulative Euclidean travel, and its parser, which
-  the plot CLI uses to find the track to analyse.
+  the plot CLI uses to find the track to analyse;
+- :func:`validate_track_df`, the check of a dataframe against that
+  contract.
 """
 
 from __future__ import annotations
@@ -95,3 +97,22 @@ def max_travel_id(df) -> int:
     d["distance"] = np.where(same_id, step, np.nan)
     d["cumulative_distance"] = d.groupby("id")["distance"].cumsum()
     return int(d.loc[d["cumulative_distance"].idxmax(), "id"])
+
+
+def validate_track_df(df) -> list[str]:
+    """The dataframe's contract violations, in JAX's order and words: the
+    column order (alone, if it is wrong), each column's dtype, then the
+    ``(id, time)`` sort. Empty when conformant."""
+    problems: list[str] = []
+    cols = tuple(df.columns)
+    if cols != TRACK_COLUMNS:
+        problems.append(f"columns {cols!r} != {TRACK_COLUMNS!r}")
+        return problems
+    for col, want in TRACK_DTYPES.items():
+        got = df[col].dtype
+        if got != want:
+            problems.append(f"dtype[{col}] {got} != {np.dtype(want)}")
+    key = df[["id", "time"]].reset_index(drop=True)
+    if not key.equals(key.sort_values(by=["id", "time"]).reset_index(drop=True)):
+        problems.append("rows not sorted by (id, time)")
+    return problems

@@ -298,12 +298,14 @@ def to_flax_variables(state_dict: dict, collections: tuple[str, ...] = ("params"
     return {c: _sorted_tree(trees[c]) for c in collections}
 
 
-def save_params(path: str, state_dict: dict) -> None:
+def save_params(path: str, state_dict: dict,
+                collections: tuple[str, ...] = ("params", "batch_stats")) -> None:
     """Write a model ``state_dict`` as the flax msgpack checkpoint the JAX
-    package writes (``{"params", "batch_stats"}``)."""
+    package writes (``{"params", "batch_stats"}``, in ``collections``'
+    order)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
-        f.write(msgpack_pack(to_flax_variables(state_dict)))
+        f.write(msgpack_pack(to_flax_variables(state_dict, collections)))
 
 
 def _check_like(got: dict, template: dict, what: str) -> None:

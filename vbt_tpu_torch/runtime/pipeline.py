@@ -24,6 +24,13 @@ XLA path on the CPU.
 MBConv blocks: the CUDA kernel on the card, its plain version on the CPU)
 instead of the module's convolutions; the rest of the path is the same.
 
+``prefilter`` is the JAX package's name for the NMS lane's candidate
+prefilter, ``"exact"`` (the default) or ``"approx"``; it is stored and
+nothing reads it, since every name selects the exact top-K here. JAX's
+``"approx"`` is ``lax.approx_max_k``, which computes the exact top-K on
+every backend but the TPU, and torch has no approximate top-k. As in JAX,
+no name is refused.
+
 ``quant="int8"`` runs every dense convolution in int8
 (:mod:`vbt_tpu_torch.models.quant`) with the activation scales of a prior
 :meth:`DetectionPipeline.calibrate`, the stand-in for the reference's
@@ -87,7 +94,7 @@ class DetectionPipeline:
 
     def __init__(self, spec: ModelSpec, state_dict: dict,
                  device: str | torch.device = "cuda", dtype: torch.dtype | None = None,
-                 backbone: str = "xla", quant: str = q.OFF):
+                 backbone: str = "xla", quant: str = q.OFF, prefilter: str = "exact"):
         if backbone not in BACKBONES:
             raise ValueError(f"backbone must be one of {BACKBONES}, got {backbone!r}")
         if quant not in QUANT:
@@ -98,6 +105,7 @@ class DetectionPipeline:
             raise ValueError(f"quant={quant!r} requires backbone='xla', got backbone={backbone!r}")
         self.spec = spec
         self.quant = quant
+        self.prefilter = prefilter
         self.weights = state_dict
         self.device, default_dtype = serving_config(device)
         self.dtype = default_dtype if dtype is None else dtype
@@ -119,13 +127,14 @@ class DetectionPipeline:
     @classmethod
     def from_model_arg(cls, model: str, device: str | torch.device = "cuda",
                        dtype: torch.dtype | None = None,
-                       backbone: str = "xla") -> "DetectionPipeline":
+                       backbone: str = "xla", prefilter: str = "exact") -> "DetectionPipeline":
         spec, ckpt = resolve_model(model)
         if ckpt is None:
             raise FileNotFoundError(
                 f"No trained weights found for --model {model!r}: expected a "
                 f".msgpack checkpoint at that path or a sibling of it.")
-        return cls(spec, load_checkpoint(ckpt), device=device, dtype=dtype, backbone=backbone)
+        return cls(spec, load_checkpoint(ckpt), device=device, dtype=dtype, backbone=backbone,
+                   prefilter=prefilter)
 
     # -- upload -----------------------------------------------------------------
     def staging(self, shape: tuple[int, ...]) -> StagingRing:
