@@ -156,7 +156,14 @@ Phases, each of which raises on failure:
    ``int8_delta`` on the shipped lite0 with ``--calib_n 8`` (its exit code
    the gate's rule); K1's count set to 0 before and read after each tool,
    held to one launch a batch of 32 images an evaluation (4, 3, 4 and 2
-   here).
+   here);
+16. the plot CLI's analysis engines timed: ``cli/plot.py::analyze_phases``
+   with the torch engine on the card beside the host lane, each on the same
+   plot-smoothed dataframe, phase 4's track (the id the plot CLI picks, 256
+   samples) and the synthetic plate's exact track over 60 s (1800 samples
+   at 30 fps), the median of ``ANALYSIS_REPS`` calls after one to warm up;
+   the phases of the two engines equal under phase 4's bounds, at least 4
+   concentric.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -208,6 +215,7 @@ FPS, PLATE_DIAMETER = 30.0, 0.45
 # within 1e-9 relative (the same bound the JAX package holds its device lane
 # to against the host lane, tests/test_velocity_jax.py).
 PHASE_RTOL = 1e-9
+ANALYSIS_SAMPLES, ANALYSIS_REPS = 1800, 3  # phase 16: 60 s at 30 fps
 TIE_PAIRS = ((37, 38), (37, 53), (37, 69), (255, 256))  # i+1, i+16, i+32, across 255/256
 # H100 SXM published peaks (NVIDIA data sheet), at the full 700 W limit.
 HBM_BYTES_PER_S = 3.35e12
@@ -815,6 +823,16 @@ def _track_series(data) -> list[np.ndarray]:
     return [np.asarray(data[c], np.float64)[ids == tid] for c in cols]
 
 
+def _same_phases(got, want) -> bool:
+    """Phase 4's bounds: the same phases, type and times exact, positions and
+    ROM within ``PHASE_RTOL`` relative."""
+    return len(got) == len(want) and all(
+        (a.type, a.time_start, a.time_end) == (b.type, b.time_start, b.time_end)
+        and all(abs(getattr(a, f) - getattr(b, f)) <= PHASE_RTOL * abs(getattr(b, f))
+                for f in ("y_start", "y_end", "rom"))
+        for a, b in zip(got, want))
+
+
 def _analyse(lane, data):
     """The plot CLI's analysis of the scan dataframe in both engines: host
     (numpy float64 smoothing and the VelocityTracker) and torch on the card
@@ -841,12 +859,7 @@ def _analyse(lane, data):
                                            device="cuda"))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    same = len(host) == len(on_card) and all(
-        (a.type, a.time_start, a.time_end) == (b.type, b.time_start, b.time_end)
-        and all(abs(getattr(a, f) - getattr(b, f)) <= PHASE_RTOL * abs(getattr(b, f))
-                for f in ("y_start", "y_end", "rom"))
-        for a, b in zip(on_card, host))
-    if not same:
+    if not _same_phases(on_card, host):
         raise AssertionError(f"{lane}: the analysis engines disagree: host {host}, "
                              f"torch {on_card}")
     reps = [p for p in host if p.type == CONCENTRIC]
@@ -1157,6 +1170,8 @@ def main(argv=None) -> int:
     # 15. Checkpoint selection and the host SORT.
     records[0]["tools_launches"], records[2]["sort_launches"] = _selection_phase(
         frames, xla, kernels)
+    # 16. The plot CLI's analysis engines timed.
+    _analysis_engines_phase(xla)
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2395,6 +2410,50 @@ def _selection_phase(frames, xla, kernels) -> tuple[dict, int]:
     print(f"phase 15 (checkpoint selection, host SORT) "
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches, sort_launches
+
+
+def _analysis_engines_phase(xla) -> None:
+    """Phase 16 (see the module docstring)."""
+    import statistics
+
+    import torch
+    from vbt_tpu_torch.analysis.phase import CONCENTRIC
+    from vbt_tpu_torch.cli.plot import analyze_phases, smooth_track_df
+    from vbt_tpu_torch.contract.schema import build_track_df, max_travel_id
+    from vbt_tpu_torch.io.synthetic import plate_track_data
+
+    t_phase = time.perf_counter()
+    main_df = build_track_df(xla["data"])
+    inputs = {
+        "phase 4's track":
+            main_df.query(f"id == {max_travel_id(main_df)}").drop(columns=["id"]),
+        "the plate's exact 60 s track":
+            build_track_df(plate_track_data(ANALYSIS_SAMPLES, HEIGHT, WIDTH, PERIOD, FPS))
+            .drop(columns=["id"]),
+    }
+    for label, raw in inputs.items():
+        df = smooth_track_df(raw)
+        phases, ms = {}, {}
+        for engine, device in (("host", "cpu"), ("torch", "cuda")):
+            times = []
+            for _ in range(ANALYSIS_REPS + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                phases[engine] = analyze_phases(df, PLATE_DIAMETER, engine, device)
+                times.append(1e3 * (time.perf_counter() - t0))  # the phases are on the host
+            ms[engine] = statistics.median(times[1:])
+        if not _same_phases(phases["torch"], phases["host"]):
+            raise AssertionError(f"analysis engines on {label}: host {phases['host']}, torch "
+                                 f"{phases['torch']}")
+        reps = sum(p.type == CONCENTRIC for p in phases["host"])
+        print(f"analysis engines [{label}, {len(df)} samples], median of {ANALYSIS_REPS} after "
+              f"a warm-up: host {ms['host']:.3f} ms, torch on the card {ms['torch']:.3f} ms "
+              f"({ms['torch'] / ms['host']:.1f}x the host, {ms['torch'] / len(df):.4f} ms a "
+              f"sample); {len(phases['host'])} phases, the same in both engines, {reps} "
+              f"concentric; {_nvidia_smi()}")
+        if reps < 4:
+            raise AssertionError(f"analysis engines on {label}: {reps} concentric phases")
+    print(f"phase 16 {time.perf_counter() - t_phase:.1f} s")
 
 
 def _host_s(fn) -> float:

@@ -12,8 +12,11 @@
   differences against a pairwise sum);
 - ``plot_one`` with both engines on a dataframe written by the port's track
   CLI from a cv2-written video, against JAX ``plot_one`` on the same file;
-- the plot CLI's options equal ``vbt-plot``'s except the ``--engine``
-  choice ``torch``, the JAX CLI's ``jax``.
+- ``--engine jax`` (an alias of ``torch``) against ``torch`` and JAX's
+  ``jax`` engine on that file, and the CLI running the torch engine on the
+  card for it;
+- the plot CLI's options equal ``vbt-plot``'s, whose ``--engine`` choices
+  the port's extend by ``torch``.
 """
 
 import os
@@ -155,6 +158,25 @@ def test_plot_one_skips_unparsable_name(tmp_path, capsys):
     assert "Couldn't create a plot" in capsys.readouterr().out
 
 
+def test_engine_jax_is_the_torch_engine(track_df):
+    """``--engine jax`` gives the torch engine's phases, and JAX's ``jax``
+    engine's; the CLI runs it on the card (which this CPU run lacks)."""
+    from click.testing import CliRunner
+
+    want = jax_plot.plot_one(track_df, False, False, PLATE_DIAMETER, None, engine="jax")
+    assert sum(p.type == CONCENTRIC for p in want) >= 2
+    alias = port_plot.plot_one(track_df, False, False, PLATE_DIAMETER, None, engine="jax",
+                               device="cpu")
+    on_torch = port_plot.plot_one(track_df, False, False, PLATE_DIAMETER, None,
+                                  engine="torch", device="cpu")
+    _assert_phases_equal(alias, on_torch)
+    _assert_phases_equal(alias, want)
+    if not torch.cuda.is_available():
+        result = CliRunner().invoke(port_plot.make_command(), ["--engine", "jax", track_df])
+        assert isinstance(result.exception, RuntimeError)
+        assert "device 'cuda' requested" in str(result.exception)
+
+
 def test_plot_cli_options_match_jax():
     def params(command):
         return {p.name: (p.opts, p.default, getattr(p, "is_flag", None),
@@ -163,8 +185,8 @@ def test_plot_cli_options_match_jax():
     want, got = params(jax_plot.main), params(port_plot.make_command())
     assert list(got) == list(want)
     for name in want:
-        if name == "engine":  # the one difference: the JAX CLI's "jax" is "torch"
-            assert want[name][3] == ["host", "jax"] and got[name][3] == ["host", "torch"]
+        if name == "engine":  # the one difference: the port adds "torch"
+            assert got[name][3] == want[name][3] + ["torch"]
             assert got[name][:3] == want[name][:3]
             continue
         assert got[name] == want[name], name

@@ -126,6 +126,23 @@ def test_anchors_equal_jax(size):
     assert sum(9 * s * s for s in feat_sizes(size).values()) == got.shape[0]
 
 
+@pytest.mark.parametrize("model", ["efficientdet_lite0", "efficientdet_lite1",
+                                   "efficientdet_lite2", "input_size_128"])
+def test_num_anchors_equals_jax(model):
+    from vbt_tpu.models.anchors import num_anchors as jax_num_anchors
+    from vbt_tpu.models.efficientdet import get_model_spec as jax_get_model_spec
+    from vbt_tpu_torch.models.anchors import num_anchors
+    from vbt_tpu_torch.models.efficientdet import get_model_spec
+
+    if model == "input_size_128":
+        cfg, want_cfg = AnchorConfig(input_size=128), JaxAnchorConfig(input_size=128)
+    else:
+        cfg, want_cfg = get_model_spec(model).anchor_config, jax_get_model_spec(model).anchor_config
+    n = num_anchors(cfg)
+    assert n == jax_num_anchors(want_cfg)
+    assert n == generate_anchors(cfg).shape[0]
+
+
 def test_decode_boxes_matches_jax():
     from vbt_tpu.models.anchors import decode_boxes as jax_decode
     from vbt_tpu_torch.models.anchors import decode_boxes

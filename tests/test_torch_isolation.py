@@ -44,7 +44,8 @@ def test_import_loads_no_jax_or_reference_package():
                    "train.train_step", "train.fused", "cli.train", "cli.data_prep",
                    "cli.training_plot", "cli._groundtruth", "cli.kinovea", "cli.qualisys",
                    "contract.golden", "utils.cache", "utils.health", "utils.profiling",
-                   "tracking.sort", "tools.ckpt_sweep", "tools.ckpt_soup", "tools.int8_delta"):
+                   "tracking.sort", "tools.ckpt_sweep", "tools.ckpt_soup", "tools.int8_delta",
+                   "tools.gen_eval_figs", "tools.gen_docs_pngs"):
         assert f"vbt_tpu_torch.{module}" in names.split(","), module
     assert bad == "", f"port imported {bad}"
 

@@ -3,10 +3,12 @@
 Port of ``vbt_tpu.cli.plot`` with the same arguments, defaults, smoothing,
 analysis, figure layout and output naming. The phase segmentation runs on
 the exact host lane (``--engine host``, numpy float64, the default) or,
-with ``--engine torch`` (the JAX CLI's ``jax``), as the two-pass torch
-program of :mod:`vbt_tpu_torch.analysis.velocity_torch` on the card
-(``device="cpu"`` for the CPU). pandas, matplotlib and seaborn are imported
-only inside :func:`render_figure` and :func:`plot_one`, click inside
+with ``--engine torch``, as the two-pass torch program of
+:mod:`vbt_tpu_torch.analysis.velocity_torch` on the card (``device="cpu"``
+for the CPU). ``--engine jax``, the JAX CLI's name for its device lane, is
+an alias of ``torch``, so ``vbt-plot``'s command lines run unchanged.
+pandas, matplotlib and seaborn are imported only inside
+:func:`render_figure` and :func:`plot_one`, click inside
 :func:`make_command`.
 
 Usage: ``python -m vbt_tpu_torch.cli.plot --fig_dir figs/ dfs/*.pkl.gz``
@@ -23,7 +25,7 @@ from vbt_tpu_torch.analysis.phase import CONCENTRIC, ECCENTRIC, Phase
 from vbt_tpu_torch.analysis.velocity import analyze_df
 from vbt_tpu_torch.contract.schema import parse_df_filename
 
-ENGINES = ("host", "torch")
+ENGINES = ("host", "jax", "torch")
 SERIES_COLS = ["time", "x", "y", "dx", "dy", "norm_plate_height", "norm_plate_width"]
 
 # Phase shading colors (plot.py:28-31).
@@ -73,7 +75,7 @@ def smooth_track_df(df):
 def analyze_phases(df, plate_diameter: float, engine: str, device="cuda") -> list[Phase]:
     """Segment the smoothed dataframe into phases with the chosen engine;
     ``device`` is where the torch engine runs."""
-    if engine == "torch":
+    if engine in ("jax", "torch"):
         from vbt_tpu_torch.analysis.velocity_torch import analyze_series, to_phase_list
 
         arrays = [df[c].to_numpy(dtype=np.float64) for c in SERIES_COLS]
@@ -215,7 +217,8 @@ def make_command():
                   help="Directory for saving the figures. If not set the figures won't be saved.")
     @click.option("--engine", default="host", type=click.Choice(list(ENGINES)),
                   show_default=True,
-                  help="Phase segmentation engine: exact host lane or the torch program on the card.")
+                  help="Phase segmentation engine: exact host lane or the torch program on "
+                       "the card (jax: the same as torch).")
     @click.option("--lang", default="en", type=click.Choice(["en", "sk"]), show_default=True,
                   help="Figure label language (the reference shipped figs_sk/ Slovak variants).")
     def command(src, show_fig, plate_diameter, fig_dir, engine, lang):

@@ -11,6 +11,8 @@ write them to a video.
 the ground truth of the detector's evaluation on them; :func:`write_voc`
 writes such frames and boxes as a PASCAL-VOC directory (JPG and XML, cv2
 imported inside) for the evaluation and training CLIs.
+:func:`plate_track_data` is the disc's exact track as the track CLI's
+capture dict, a stand-in for a tracked video's dataframe.
 :func:`plate_track_meters` is the disc's trajectory in meters, which
 :func:`write_kinovea_export` and :func:`write_qualisys_export` write in the
 two ground-truth formats of the validation CLIs.
@@ -87,6 +89,23 @@ def write_voc(root, sizes, n: int = 2, period: int = 5) -> None:
                 for label, b in (("barbell", box), ("person", [0, 0, h // 4, w // 4])))
             with open(os.path.join(root, f"{name}.xml"), "w") as f:
                 f.write(f"<annotation><filename>{name}.jpg</filename>{objects}</annotation>")
+
+
+def plate_track_data(n: int, height: int, width: int, period: int = 32,
+                     fps: float = 30.0) -> dict:
+    """The disc's exact track (id 1) over the ``n`` frames :func:`plate_frames`
+    draws at this size, as the columnar capture dict that
+    ``contract.schema.build_track_df`` takes: centers and box sizes
+    normalized by the frame, velocities the change from the frame before
+    (0 in the first), frame ``t`` at ``(t + 1) / fps`` seconds."""
+    boxes = plate_boxes(n, height, width, period)
+    x = (boxes[:, 1] + boxes[:, 3]) / 2 / width
+    y = (boxes[:, 0] + boxes[:, 2]) / 2 / height
+    return {"id": [1] * n, "time": ((np.arange(n) + 1) / fps).tolist(),
+            "x": x.tolist(), "y": y.tolist(),
+            "dx": np.diff(x, prepend=x[0]).tolist(), "dy": np.diff(y, prepend=y[0]).tolist(),
+            "norm_plate_height": ((boxes[:, 2] - boxes[:, 0]) / height).tolist(),
+            "norm_plate_width": ((boxes[:, 3] - boxes[:, 1]) / width).tolist()}
 
 
 def plate_track_meters(time: np.ndarray, height: int, width: int, period: int = 32,

@@ -72,6 +72,13 @@ def generate_anchors(cfg: AnchorConfig) -> np.ndarray:
     return np.concatenate(boxes, axis=0)
 
 
+def num_anchors(cfg: AnchorConfig) -> int:
+    """The anchor count of ``cfg``: the rows :func:`generate_anchors` makes."""
+    sizes = feat_sizes(cfg.input_size, cfg.min_level, cfg.max_level)
+    return sum(sizes[lv] ** 2 * cfg.num_scales * len(cfg.aspect_ratios)
+               for lv in range(cfg.min_level, cfg.max_level + 1))
+
+
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
     """Decode (ty, tx, th, tw) deltas against [yc, xc, h, w] anchors into
     [ymin, xmin, ymax, xmax] in the anchors' pixel units. Broadcasts over
