@@ -163,7 +163,21 @@ Phases, each of which raises on failure:
    samples) and the synthetic plate's exact track over 60 s (1800 samples
    at 30 fps), the median of ``ANALYSIS_REPS`` calls after one to warm up;
    the phases of the two engines equal under phase 4's bounds, at least 4
-   concentric.
+   concentric;
+17. the bench, the entry points and the measurement tools as a user runs
+   them: ``python -m vbt_tpu_torch.bench`` in each of its four lanes
+   (plain, ``--int8``, ``--turbo``, ``--approx_prefilter``; the health
+   probe, then the measurement in a child), each last JSON line valid
+   under the lane's metric name with ``value > 0`` and ``0 < mfu <= 1``;
+   then each lane's pipeline as the bench builds it, one ``detect_batch``
+   at the bench's batch in this process with the counts at 0: K1 once, K2
+   five times through ``"mma"`` in the turbo lane and never elsewhere;
+   ``python -m vbt_tpu_torch.entry --devices cuda:0,cuda:0`` (``entry ok``,
+   ``dryrun ok``); ``tools.roofline``'s table; ``tools.turbo_check`` and
+   ``tools.prefilter_check`` (exit 0; 32 synthetic images, B = 64 and 128);
+   ``tools.int8_profile`` and ``tools.perf_probe`` at B = 64 and 128; the
+   tools in this process after phase 14's probe, K1 (and K2 in
+   ``turbo_check``) counted per tool.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -1172,6 +1186,9 @@ def main(argv=None) -> int:
         frames, xla, kernels)
     # 16. The plot CLI's analysis engines timed.
     _analysis_engines_phase(xla)
+    # 17. The bench, the entry points and the measurement tools.
+    records[0]["bench_launches"], records[1]["bench_launches"], records[0]["measure_launches"], \
+        records[1]["measure_launches"] = _bench_phase(kernels)
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2454,6 +2471,109 @@ def _analysis_engines_phase(xla) -> None:
         if reps < 4:
             raise AssertionError(f"analysis engines on {label}: {reps} concentric phases")
     print(f"phase 16 {time.perf_counter() - t_phase:.1f} s")
+
+
+BENCH_LANES = {"plain": [], "int8": ["--int8"], "turbo": ["--turbo"],
+               "approx": ["--approx_prefilter"]}
+BENCH_TIMEOUT_S = 300  # a lane: the probe's child and the measurement's
+TOOL_BATCHES = ["64", "128"]
+
+
+def _bench_phase(kernels) -> tuple[dict, dict, dict, dict]:
+    """Phase 17 (see the module docstring). Returns K1's and K2's launches
+    by bench lane (one in-process detect at the bench's batch) and by tool."""
+    import torch
+    from vbt_tpu_torch import bench
+    from vbt_tpu_torch.ops import _build
+    from vbt_tpu_torch.tools import (int8_profile, perf_probe, prefilter_check, roofline,
+                                     turbo_check)
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=REPO, VBT_TORCH_BUILD_DIR=str(_build.BUILD_DIR))
+    for lane, flags in BENCH_LANES.items():
+        t0 = time.perf_counter()
+        env[bench.RAW_ENV] = os.path.join(REPO, "out", f"chip_smoke_bench_{lane}.json")
+        proc = subprocess.run([sys.executable, "-m", "vbt_tpu_torch.bench", *flags], cwd=REPO,
+                              env=env, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        lines = proc.stdout.strip().splitlines()
+        line = json.loads(lines[-1]) if lines else {}
+        print(f"bench {lane} ({time.perf_counter() - t0:.1f} s, exit {proc.returncode}): "
+              f"{json.dumps(line)}")
+        if (proc.returncode != 0 or line.get("invalid") or line.get("metric")
+                != bench._metric_name(flags) or not line.get("value", 0) > 0
+                or not 0 < (line.get("mfu") or 0) <= 1):
+            raise AssertionError(f"bench {lane}: {proc.stderr[-4000:]}")
+
+    bench_k1, bench_k2 = {}, {}
+    rng = np.random.default_rng(0)
+    for lane, flags in BENCH_LANES.items():
+        pipe = bench.build_pipeline("--int8" in flags, "--turbo" in flags,
+                                    "approx" if "--approx_prefilter" in flags else "exact",
+                                    "cuda", rng)
+        frames = bench.frame_batches(rng, bench.BATCH, pipe.spec.input_size, "cuda", n=1)[0]
+        for k in kernels.values():
+            k.launches = 0
+        mma = kernels["fused_mbconv"].launches_by_variant["mma"]
+        det = pipe.detect_batch(frames)
+        torch.cuda.synchronize()
+        bench_k1[lane] = kernels["nms"].launches
+        bench_k2[lane] = kernels["fused_mbconv"].launches
+        by_mma = kernels["fused_mbconv"].launches_by_variant["mma"] - mma
+        want_k2 = 5 if lane == "turbo" else 0
+        print(f"bench {lane} pipeline, one detect_batch at B = {bench.BATCH}: NMS "
+              f"{bench_k1[lane]}, fused MBConv {bench_k2[lane]} ({by_mma} mma), found in "
+              f"{int((det.count > 0).sum())} of {bench.BATCH} random frames")
+        if bench_k1[lane] != 1 or bench_k2[lane] != want_k2 or by_mma != want_k2 or any(
+                k.launches for n, k in kernels.items() if n not in ("nms", "fused_mbconv")):
+            raise AssertionError(f"bench {lane} lane's launches: {bench_k1[lane]}, "
+                                 f"{bench_k2[lane]} ({by_mma} mma)")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vbt_tpu_torch.entry", "--devices",
+                           "cuda:0,cuda:0"], cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=600)
+    print(f"python -m vbt_tpu_torch.entry --devices cuda:0,cuda:0 "
+          f"({time.perf_counter() - t0:.1f} s, exit {proc.returncode}):\n{proc.stdout.strip()}")
+    if proc.returncode != 0 or "entry ok" not in proc.stdout or "dryrun ok" not in proc.stdout:
+        raise AssertionError(f"entry: {proc.stderr[-4000:]}")
+
+    # The tools in this process; phase 14 probed the card.
+    probe = os.environ.get("VBT_TORCH_HEALTH_PROBE")
+    os.environ["VBT_TORCH_HEALTH_PROBE"] = "0"
+    tool_k1, tool_k2 = {}, {}
+    try:
+        tools = {
+            "roofline": lambda: roofline.main(
+                ["--out", os.path.join(REPO, "out", "chip_smoke_roofline.json")]),
+            "turbo_check": lambda: turbo_check.main(["--batches", *TOOL_BATCHES]),
+            "prefilter_check": lambda: prefilter_check.main(["--batches", *TOOL_BATCHES]),
+            "int8_profile": lambda: int8_profile.main(
+                ["--batches", *TOOL_BATCHES, "--out",
+                 os.path.join(REPO, "out", "chip_smoke_int8_profile.json")]),
+            "perf_probe": lambda: perf_probe.main(["--batches", *TOOL_BATCHES]),
+        }
+        for name, run in tools.items():
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            out = run()
+            tool_k1[name], tool_k2[name] = (kernels["nms"].launches,
+                                            kernels["fused_mbconv"].launches)
+            print(f"tools.{name} ({time.perf_counter() - t0:.1f} s): NMS {tool_k1[name]} "
+                  f"launches, fused MBConv {tool_k2[name]}; {_nvidia_smi()}")
+            if name.endswith("_check") and out != 0:
+                raise AssertionError(f"tools.{name} exited {out}")
+            if tool_k1[name] == 0 and name != "int8_profile":
+                raise AssertionError(f"tools.{name} launched no NMS")
+        if tool_k2["turbo_check"] == 0:
+            raise AssertionError("tools.turbo_check launched no fused MBConv")
+    finally:
+        if probe is None:
+            del os.environ["VBT_TORCH_HEALTH_PROBE"]
+        else:
+            os.environ["VBT_TORCH_HEALTH_PROBE"] = probe
+    print(f"phase 17 {time.perf_counter() - t_phase:.1f} s")
+    return bench_k1, bench_k2, tool_k1, tool_k2
 
 
 def _host_s(fn) -> float:

@@ -43,13 +43,23 @@ JPGs of the same directory and evaluates it on its 8 test images at
   measured delta, and notes a gain above the budget on stderr;
 - a calibration set shorter than ``--calib_n`` raises ``SystemExit``.
 
-Each JAX evaluation rebuilds a JAX pipeline and runs the Pallas NMS in
-interpret mode over a padded batch of 32, so the file keeps their number
-small: one directory for every tool, 4 sweep, 2 + 2 soup and 2 int8
-evaluations on each side. JAX's tools select their own persistent compile
-cache; the tests keep the one ``tests/conftest.py`` selects.
+Each JAX evaluation runs the Pallas NMS in interpret mode over a padded
+batch of 32, so the file keeps their number small: one directory for every
+tool, 4 sweep, 2 + 2 soup and 2 int8 evaluations on each side. JAX's tools
+build a new ``DetectionPipeline`` (and its template variables, and a
+``Trainer`` state) for every evaluation, and each new one traces and
+compiles its programs again, and two of the ten evaluations repeat an
+earlier one on the same variables (a soup's seed). Here every JAX pipeline
+of one configuration runs the jitted programs of the first, and a JAX
+evaluation of variables already evaluated on the same directory returns
+that result (:func:`shared_jax_programs`): the same programs on the same
+inputs, so the same numbers. The port's evaluations all run. JAX's tools
+select their own persistent compile cache; the tests keep the one
+``tests/conftest.py`` selects.
 """
 
+import functools
+import hashlib
 import io
 import os
 
@@ -63,6 +73,11 @@ import click  # noqa: E402
 from click.testing import CliRunner  # noqa: E402
 
 import vbt_tpu.utils.cache as jax_cache  # noqa: E402
+import jax  # noqa: E402
+import numpy as np  # noqa: E402
+from vbt_tpu.runtime import pipeline as jax_pipeline  # noqa: E402
+from vbt_tpu.train import evaluate as jax_evaluate  # noqa: E402
+from vbt_tpu.train import train_step as jax_train_step  # noqa: E402
 from tools import ckpt_soup as jax_soup  # noqa: E402
 from tools import ckpt_sweep as jax_sweep  # noqa: E402
 from tools import int8_delta as jax_int8  # noqa: E402
@@ -77,6 +92,61 @@ ARCH = "efficientdet_lite0"
 SPLITS = {"train": (((240, 320), (288, 512)), 2), "valid": (((240, 320),), 2),
           "test": (((360, 480), (480, 640)), 4)}
 INT8_TOL = {"AP": 0.03, "AP50": 0.125, "AP75": 0.125}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def shared_jax_programs():
+    """Within this module, a JAX ``DetectionPipeline`` takes the jitted
+    ``_forward``/``_post``/``_detect`` of the first pipeline of its
+    configuration (spec, dtype, NMS lane, quant, backbone, prefilter), and
+    ``init_variables`` and ``Trainer.init_state`` return the first result
+    for their arguments (immutable JAX arrays; the tools' trainers all have
+    the same configuration). A pipeline's programs read only that
+    configuration from it, and take the variables as an argument.
+    ``evaluate_model`` of a configuration, variables (by their bytes) and
+    directory already evaluated returns a copy of that result."""
+    mp = pytest.MonkeyPatch()
+    cls = jax_pipeline.DetectionPipeline
+    first = {}
+    post_init = cls.__post_init__
+
+    def config(pipe):
+        return (pipe.spec, str(pipe.dtype), pipe.use_pallas, pipe.quant, pipe.backbone,
+                pipe.prefilter)
+
+    def share(self):
+        post_init(self)
+        owner = first.setdefault(config(self), self)
+        self._forward, self._post, self._detect = owner._forward, owner._post, owner._detect
+
+    mp.setattr(cls, "__post_init__", share)
+    evaluate_model = jax_evaluate.evaluate_model
+    results = {}
+
+    def evaluate_once(pipeline, data_dir, label="barbell"):
+        digest = hashlib.sha256(str(jax.tree.structure(pipeline.variables)).encode())
+        for leaf in jax.tree.leaves(pipeline.variables):
+            leaf = np.asarray(leaf)
+            digest.update(f"{leaf.dtype}{leaf.shape}".encode() + leaf.tobytes())
+        key = (config(pipeline), digest.hexdigest(), data_dir, label)
+        if key not in results:
+            results[key] = evaluate_model(pipeline, data_dir, label)
+        return dict(results[key])
+
+    mp.setattr(jax_evaluate, "evaluate_model", evaluate_once)
+    mp.setattr(cls, "init_variables", staticmethod(functools.cache(cls.init_variables)))
+    init_state = jax_train_step.Trainer.init_state
+    states = {}
+
+    def cached_init_state(self, seed=0, input_size=None):
+        key = (self.spec, seed, input_size or self.input_size)
+        if key not in states:
+            states[key] = init_state(self, seed=seed, input_size=input_size)
+        return states[key]
+
+    mp.setattr(jax_train_step.Trainer, "init_state", cached_init_state)
+    yield
+    mp.undo()
 
 
 @pytest.fixture(scope="module")

@@ -32,7 +32,9 @@ version on CPU copies: bit for bit, int32 accumulators; the int8 lane's top
 boxes within 0.05 of the frame of the bf16 lane's (the bound the bf16 lane
 is held to against float32). Training: train-mode BatchNorm 1e-5, and two
 train steps (float32 and float64) against the CPU port under
-``chip_smoke.py``'s phase-13 bounds.
+``chip_smoke.py``'s phase-13 bounds. The bench in each lane in-process at
+B = 16 (a valid line, ``0 < mfu <= 1``, K1 launched, K2 through "mma" in
+the turbo lane only) and the entry's dry run over the card twice.
 """
 
 import os
@@ -725,3 +727,35 @@ def test_train_step_on_the_card_equals_cpu(dev, dtype):
             assert diff(getattr(card, name), k, want) <= atol + lr * trace_rtol * top, k
     for k, want in cpu.batch_stats.items():
         assert diff(card.batch_stats, k, want) <= atol + rtol * want.abs().max().item(), k
+
+
+LANES = {"plain": {}, "int8": {"int8": True}, "turbo": {"turbo": True},
+         "approx": {"prefilter": "approx"}}
+
+
+@pytest.mark.parametrize("lane", list(LANES))
+def test_bench_lane_on_the_card(dev, lane, monkeypatch, tmp_path):
+    """``vbt_tpu_torch.bench.main`` at B = 16 in each lane: a valid line with
+    ``0 < mfu <= 1``, the card's name and power limit; K1 (and K2 through
+    "mma" in the turbo lane) launched."""
+    from vbt_tpu_torch import bench
+    from vbt_tpu_torch.ops.fused_mbconv import fused_mbconv
+    from vbt_tpu_torch.ops.nms_cuda import nms
+
+    monkeypatch.setattr(bench, "BATCH", 16)
+    monkeypatch.setenv(bench.RAW_ENV, str(tmp_path / "raw.json"))
+    monkeypatch.setenv("VBT_TORCH_HEALTH_PROBE", "0")
+    nms.launches = 0
+    mma, fma = (fused_mbconv.launches_by_variant[v] for v in ("mma", "fma"))
+    line = bench.main(device="cuda", **LANES[lane])
+    assert line["value"] > 0 and 0 < line["mfu"] <= 1 and line["batch"] == 16
+    assert line["device"] == torch.cuda.get_device_name(0) and line["power_limit_w"] > 0
+    assert nms.launches > 0
+    assert fused_mbconv.launches_by_variant["fma"] == fma
+    assert (fused_mbconv.launches_by_variant["mma"] > mma) == (lane == "turbo")
+
+
+def test_dryrun_over_one_card_twice(dev):
+    from vbt_tpu_torch.entry import dryrun_multichip
+
+    dryrun_multichip(2, devices=[dev, dev])

@@ -45,7 +45,9 @@ def test_import_loads_no_jax_or_reference_package():
                    "cli.training_plot", "cli._groundtruth", "cli.kinovea", "cli.qualisys",
                    "contract.golden", "utils.cache", "utils.health", "utils.profiling",
                    "tracking.sort", "tools.ckpt_sweep", "tools.ckpt_soup", "tools.int8_delta",
-                   "tools.gen_eval_figs", "tools.gen_docs_pngs"):
+                   "tools.gen_eval_figs", "tools.gen_docs_pngs", "bench", "entry",
+                   "tools._timing", "tools.roofline", "tools.perf_probe", "tools.int8_profile",
+                   "tools.turbo_check", "tools.prefilter_check"):
         assert f"vbt_tpu_torch.{module}" in names.split(","), module
     assert bad == "", f"port imported {bad}"
 

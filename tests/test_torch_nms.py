@@ -8,13 +8,16 @@ sigmoid, computed by XLA on one side and torch on the other), boxes 1e-5
 (one exp in the decode, normalized coordinates).
 
 The pipeline's ``prefilter`` option, ``"exact"`` and ``"approx"``, on the
-shipped lite0: the port serves the exact top-K for every name (the option is
-only stored), so the one port pipeline is held against JAX's pipeline of
-each prefilter: JAX's head outputs through the port's kernel lane within
-these bounds, and the whole ``detect_batch`` within the bounds of two
-forwards (``tests/test_torch_eval.py``: scores 3e-5, boxes 1e-5). On the
-JAX side ``"approx"`` equals ``"exact"`` bit for bit (``lax.approx_max_k``
-is the exact top-K off the TPU)."""
+shipped lite0: the pipeline hands it to both postprocesses, where
+``"approx"`` selects ``approx_top_k`` (the exact top-K, as
+``lax.approx_max_k`` is off the TPU) and any other name the exact top-K. So
+each prefilter's port pipeline is held against JAX's pipeline of the same
+prefilter: JAX's head outputs through the port's kernel lane within these
+bounds, and the whole ``detect_batch`` within the bounds of two forwards
+(``tests/test_torch_eval.py``: scores 3e-5, boxes 1e-5); the class-aware
+lane with each prefilter against JAX's XLA postprocess (which has no
+prefilter) within these bounds. On both sides ``"approx"`` equals
+``"exact"`` bit for bit, and an unknown name is served exact."""
 
 import numpy as np
 import pytest
@@ -235,15 +238,18 @@ def test_iou_matrix_basic():
 @pytest.fixture(scope="module")
 def prefilter_lanes():
     """Each prefilter's JAX pipeline (the Pallas NMS in interpret mode) and
-    its detections, the port pipeline (CPU, the NMS kernel's lane: its wrapper runs
-    ``nms_plain`` on CPU tensors) and two synthetic plate frames."""
+    its detections, each prefilter's port pipeline (CPU, the NMS kernel's
+    lane: its wrapper runs ``nms_plain`` on CPU tensors) and two synthetic
+    plate frames."""
     frames = plate_frames(2, 240, 320, seed=0, period=5)
     exact = JaxPipeline.from_model_arg(CKPT)
     jax_pipes = {p: dataclasses.replace(exact, prefilter=p) for p in PREFILTERS}
     jax_dets = {p: jpipe.detect_batch(jnp.asarray(frames)) for p, jpipe in jax_pipes.items()}
-    pipe = DetectionPipeline.from_model_arg(CKPT, device="cpu")
-    pipe.use_kernel = True
-    return frames, jax_pipes, jax_dets, pipe
+    pipes = {p: DetectionPipeline.from_model_arg(CKPT, device="cpu", prefilter=p)
+             for p in PREFILTERS}
+    for pipe in pipes.values():
+        pipe.use_kernel = True
+    return frames, jax_pipes, jax_dets, pipes
 
 
 def _numpy(det):
@@ -252,8 +258,8 @@ def _numpy(det):
 
 @pytest.mark.parametrize("prefilter", PREFILTERS)
 def test_pipeline_prefilter_matches_pallas(prefilter_lanes, prefilter):
-    frames, jax_pipes, jax_dets, pipe = prefilter_lanes
-    jpipe = jax_pipes[prefilter]
+    frames, jax_pipes, jax_dets, pipes = prefilter_lanes
+    jpipe, pipe = jax_pipes[prefilter], pipes[prefilter]
     deltas, logits = jpipe._forward(jpipe.variables, jnp.asarray(frames))
     got = pipe.postprocess(torch.from_numpy(np.array(deltas, np.float32)),
                            torch.from_numpy(np.array(logits, np.float32)))
@@ -276,9 +282,48 @@ def test_approx_prefilter_equals_exact(prefilter_lanes):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_pipeline_takes_any_prefilter_name():
-    """As in JAX, no prefilter name is refused; it is stored and every name
-    serves the exact top-K."""
+@pytest.mark.parametrize("prefilter", PREFILTERS)
+def test_prefilter_reaches_both_postprocesses(prefilter_lanes, prefilter, monkeypatch):
+    """The pipeline's name reaches the kernel lane and the class-aware lane;
+    only ``"approx"`` takes ``approx_top_k``, and both lanes equal JAX's on
+    the same head outputs."""
+    from vbt_tpu_torch.ops import postprocess as port_post
+
+    frames, jax_pipes, _, pipes = prefilter_lanes
+    jpipe, pipe = jax_pipes[prefilter], pipes[prefilter]
+    deltas, logits = jpipe._forward(jpipe.variables, jnp.asarray(frames))
+    d, lg = (torch.from_numpy(np.array(a, np.float32)) for a in (deltas, logits))
+    calls = []
+    approx = port_post.approx_top_k
+    monkeypatch.setattr(port_post, "approx_top_k",
+                        lambda values, k: calls.append(k) or approx(values, k))
+    _assert_same(pipe.postprocess(d, lg), jpipe._post(deltas, logits))
+    pipe.use_kernel = False
+    try:
+        got = pipe.postprocess(d, lg)
+    finally:
+        pipe.use_kernel = True
+    _assert_same(got, jax_postprocess(deltas, logits, jnp.asarray(ANCHORS), input_size=320,
+                                      max_detections=25))
+    assert calls == ([512, 512] if prefilter == "approx" else [])
+
+
+def test_pipeline_takes_any_prefilter_name(prefilter_lanes):
+    """As in JAX, no prefilter name is refused: it is stored, and a name
+    other than ``"approx"`` is served by the exact top-K, bit for bit."""
+    frames, _, _, pipes = prefilter_lanes
     for name in ("exact", "approx", "bogus"):
         assert DetectionPipeline.from_model_arg(CKPT, device="cpu",
                                                 prefilter=name).prefilter == name
+    pipe = pipes["exact"]
+    d, lg = pipe.forward(frames)
+    try:
+        for use_kernel in (True, False):
+            pipe.prefilter, pipe.use_kernel = "exact", use_kernel
+            want = pipe.postprocess(d, lg)
+            for name in ("approx", "bogus"):
+                pipe.prefilter = name
+                for a, b in zip(pipe.postprocess(d, lg), want):
+                    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    finally:
+        pipe.prefilter, pipe.use_kernel = "exact", True

@@ -25,7 +25,7 @@ from vbt_tpu_torch.ops.postprocess import (
     Detections,
     gather_decode,
     nms_plain,
-    top_k_candidates,
+    prefilter_candidates,
 )
 
 MAX_CANDIDATES = 512  # candidates an image's warps hold in registers (csrc/nms.cu kMaxCandidates)
@@ -95,13 +95,15 @@ def detection_postprocess_cuda(
     iou_threshold: float = 0.5,
     score_threshold: float = 0.0,
     num_candidates: int = NUM_CANDIDATES,
+    prefilter: str = "exact",
 ) -> Detections:
-    """Top-K prefilter + decode + NMS kernel; the contract of
+    """Top-K prefilter (:func:`~vbt_tpu_torch.ops.postprocess.prefilter_candidates`
+    by ``prefilter``) + decode + NMS kernel; the contract of
     ``detection_postprocess_pallas``, single class."""
     if logits.shape[-1] != 1:
         raise ValueError("the NMS kernel is single-class; use detection_postprocess")
     k = min(num_candidates, logits.shape[1])
-    top_logits, top_idx = top_k_candidates(logits[..., 0].float(), k)
+    top_logits, top_idx = prefilter_candidates(logits[..., 0].float(), k, prefilter)
     boxes_k = gather_decode(deltas, anchors, top_idx, input_size)
     count, scores, boxes = nms(top_logits.contiguous(), boxes_k.contiguous(),
                                max_detections, iou_threshold, score_threshold)

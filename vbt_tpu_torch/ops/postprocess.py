@@ -15,6 +15,10 @@ Both prefilter with :func:`top_k_candidates`, a *stable* descending sort:
 ``lax.top_k`` puts the lower anchor index first among equal values, and the
 NMS tie-break (lowest candidate position) depends on that order;
 ``torch.topk`` does not promise it on CUDA.
+
+``prefilter`` names the prefilter as the JAX package's NMS lane does
+(``vbt_tpu/ops/nms_pallas.py:201-204``): ``"approx"`` selects
+:func:`approx_top_k`, any other name the exact top-K; no name is refused.
 """
 
 from __future__ import annotations
@@ -57,6 +61,23 @@ def top_k_candidates(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.
     ``lax.top_k`` order)."""
     vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
+
+
+def approx_top_k(values: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``"approx"`` prefilter. JAX's is ``lax.approx_max_k``, which
+    computes the exact top-K on every backend but the TPU (its ``"approx"``
+    equals its ``"exact"`` bit for bit on the CPU), and the port has no
+    approximate top-K kernel: so this is :func:`top_k_candidates`."""
+    return top_k_candidates(values, k)
+
+
+def prefilter_candidates(values: torch.Tensor, k: int,
+                         prefilter: str = "exact") -> tuple[torch.Tensor, torch.Tensor]:
+    """The top ``k`` candidates by the named prefilter: ``"approx"`` is
+    :func:`approx_top_k`, any other name the exact :func:`top_k_candidates`."""
+    if prefilter == "approx":
+        return approx_top_k(values, k)
+    return top_k_candidates(values, k)
 
 
 def gather_decode(deltas: torch.Tensor, anchors: torch.Tensor, idx: torch.Tensor,
@@ -120,13 +141,15 @@ def detection_postprocess(
     iou_threshold: float = 0.5,
     score_threshold: float = 0.0,
     num_candidates: int = NUM_CANDIDATES,
+    prefilter: str = "exact",
 ) -> Detections:
-    """Class-aware decode + greedy NMS, mirroring the JAX XLA path."""
+    """Class-aware decode + greedy NMS, mirroring the JAX XLA path, with
+    the candidates of :func:`prefilter_candidates`."""
     scores_all = torch.sigmoid(logits.float())  # (B, N, C)
     best_score, best_class = scores_all.max(dim=-1)
     best_class = best_class.to(torch.int32)
     k = min(num_candidates, best_score.shape[1])
-    top_scores, top_idx = top_k_candidates(best_score, k)
+    top_scores, top_idx = prefilter_candidates(best_score, k, prefilter)
     top_classes = torch.gather(best_class, 1, top_idx)
     boxes = gather_decode(deltas, anchors, top_idx, input_size)  # (B, K, 4)
 

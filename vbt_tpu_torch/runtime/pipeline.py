@@ -24,12 +24,18 @@ XLA path on the CPU.
 MBConv blocks: the CUDA kernel on the card, its plain version on the CPU)
 instead of the module's convolutions; the rest of the path is the same.
 
-``prefilter`` is the JAX package's name for the NMS lane's candidate
-prefilter, ``"exact"`` (the default) or ``"approx"``; it is stored and
-nothing reads it, since every name selects the exact top-K here. JAX's
+``prefilter`` is the JAX package's name for the candidate prefilter,
+``"exact"`` (the default) or ``"approx"``; :meth:`DetectionPipeline.postprocess`
+hands it to either postprocess
+(:func:`~vbt_tpu_torch.ops.postprocess.prefilter_candidates`). JAX's
 ``"approx"`` is ``lax.approx_max_k``, which computes the exact top-K on
-every backend but the TPU, and torch has no approximate top-k. As in JAX,
-no name is refused.
+every backend but the TPU, so the port serves it with the exact top-K. As
+in JAX, no name is refused, and :meth:`DetectionPipeline.calibrate`'s int8
+pipeline takes the default.
+
+:meth:`DetectionPipeline.init_variables` is the random-initialization
+fallback where no checkpoint is at hand (the bench, ``entry.py``, the
+health probe): flax's initializers drawn from a seeded ``torch.Generator``.
 
 ``quant="int8"`` runs every dense convolution in int8
 (:mod:`vbt_tpu_torch.models.quant`) with the activation scales of a prior
@@ -50,6 +56,7 @@ import torch
 from vbt_tpu_torch.models import EfficientDet, ModelSpec, get_model_spec
 from vbt_tpu_torch.models import quant as q
 from vbt_tpu_torch.models.anchors import generate_anchors
+from vbt_tpu_torch.models.efficientdet import init_parameters
 from vbt_tpu_torch.models.turbo import TurboBackbone, turbo_forward
 from vbt_tpu_torch.ops.nms_cuda import detection_postprocess_cuda
 from vbt_tpu_torch.ops.postprocess import Detections, detection_postprocess
@@ -136,6 +143,16 @@ class DetectionPipeline:
         return cls(spec, load_checkpoint(ckpt), device=device, dtype=dtype, backbone=backbone,
                    prefilter=prefilter)
 
+    @staticmethod
+    def init_variables(spec: ModelSpec, seed: int = 0,
+                       dtype: torch.dtype = torch.float32) -> "OrderedDict[str, torch.Tensor]":
+        """A state dict in the serving layout (the keys and shapes of
+        ``convert_flax_variables`` of JAX's ``init_variables(spec)``) from
+        flax's initializers, drawn on the CPU from ``seed``; JAX's random
+        stream is not reproduced. ``dtype`` is that of every tensor."""
+        model = init_parameters(EfficientDet(spec), torch.Generator().manual_seed(seed))
+        return OrderedDict((k, v.to(dtype)) for k, v in model.state_dict().items())
+
     # -- upload -----------------------------------------------------------------
     def staging(self, shape: tuple[int, ...]) -> StagingRing:
         """The staging ring of one batch shape, made at first use. Beyond
@@ -203,7 +220,8 @@ class DetectionPipeline:
                     score_threshold: float = 0.0) -> Detections:
         fn = detection_postprocess_cuda if self.use_kernel else detection_postprocess
         return fn(deltas, logits, self.anchors, input_size=self.spec.input_size,
-                  max_detections=MAX_DETECTIONS, score_threshold=score_threshold)
+                  max_detections=MAX_DETECTIONS, score_threshold=score_threshold,
+                  prefilter=self.prefilter)
 
     def detect_batch(self, frames, score_threshold: float = 0.0) -> Detections:
         """uint8 RGB (B, H, W, 3) -> Detections on the pipeline's device."""

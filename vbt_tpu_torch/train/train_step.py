@@ -45,7 +45,7 @@ from torch.func import functional_call
 from vbt_tpu_torch.models import EfficientDet, ModelSpec
 from vbt_tpu_torch.models.anchors import generate_anchors
 from vbt_tpu_torch.models.conv import Conv2dSame
-from vbt_tpu_torch.models.efficientdet import init_parameters
+from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
 from vbt_tpu_torch.train.losses import detection_loss
 from vbt_tpu_torch.train.targets import assign_targets
 from vbt_tpu_torch.utils.device import resolve_device
@@ -158,18 +158,25 @@ class Trainer:
     """Owns the model, anchors, optimizer and the step functions, on one
     device (``"cuda"`` unless the caller asks for the CPU). ``dtype`` is the
     compute dtype; the state is float32 under bfloat16 compute, else
-    ``dtype``."""
+    ``dtype``.
+
+    ``mesh`` is stored and nothing reads it, as in the JAX package, whose
+    data-parallel step is GSPMD's: the one-device arithmetic over the global
+    batch. The step runs on ``device`` over the whole batch; an exact step
+    over several cards would need cross-card BatchNorm statistics and a
+    gradient all-reduce, which no caller asks for."""
 
     def __init__(self, spec: ModelSpec, base_lr: float = 0.08, total_steps: int = 1000,
                  warmup_steps: int = 100, dtype: torch.dtype = torch.float32,
                  input_size: int | None = None, ema_decay: float = 0.9998,
-                 freeze_top_keys: tuple = (), device: str | torch.device = "cuda"):
+                 freeze_top_keys: tuple = (), device: str | torch.device = "cuda", mesh=None):
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
         self.dtype = dtype
         self.state_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
         self.device = resolve_device(device)
         self.ema_decay = ema_decay
+        self.mesh = mesh
         self.freeze_top_keys = tuple(freeze_top_keys)
         self.spec = spec
         self.input_size = input_size or spec.input_size
@@ -191,8 +198,7 @@ class Trainer:
     def init_state(self, seed: int = 0) -> TrainState:
         """A fresh state from flax's initializers, drawn from ``seed`` on the
         CPU (the same parameters on every device)."""
-        model = init_parameters(EfficientDet(self.spec), torch.Generator().manual_seed(seed))
-        return self.state_from(model.state_dict())
+        return self.state_from(DetectionPipeline.init_variables(self.spec, seed))
 
     def state_from(self, state_dict: dict) -> TrainState:
         """A fresh train state (step 0, zero trace, EMA = params) from a

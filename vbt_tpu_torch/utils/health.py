@@ -100,14 +100,12 @@ x = torch.ones(128, 128, dtype=torch.bfloat16, device=dev)
 assert float((x @ x).float().sum().cpu()) > 0
 
 # 2. The served path at batch 128, timed marginally.
-from vbt_tpu_torch.models import EfficientDet, get_model_spec
-from vbt_tpu_torch.models.efficientdet import init_parameters
+from vbt_tpu_torch.models import get_model_spec
 from vbt_tpu_torch.ops.nms_cuda import nms
 from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
 
 spec = get_model_spec("efficientdet_lite0")
-model = init_parameters(EfficientDet(spec), torch.Generator().manual_seed(0))
-pipe = DetectionPipeline(spec, model.state_dict(), device=dev)
+pipe = DetectionPipeline(spec, DetectionPipeline.init_variables(spec), device=dev)
 rng = np.random.default_rng(0)
 frames = torch.from_numpy(rng.integers(0, 255, size=(batch, size, size, 3), dtype=np.uint8)).to(dev)
 
