@@ -173,11 +173,27 @@ Phases, each of which raises on failure:
    at the bench's batch in this process with the counts at 0: K1 once, K2
    five times through ``"mma"`` in the turbo lane and never elsewhere;
    ``python -m vbt_tpu_torch.entry --devices cuda:0,cuda:0`` (``entry ok``,
-   ``dryrun ok``); ``tools.roofline``'s table; ``tools.turbo_check`` and
+   ``dryrun ok``, after a data-parallel train step over the two);
+   ``tools.roofline``'s table; ``tools.turbo_check`` and
    ``tools.prefilter_check`` (exit 0; 32 synthetic images, B = 64 and 128);
    ``tools.int8_profile`` and ``tools.perf_probe`` at B = 64 and 128; the
    tools in this process after phase 14's probe, K1 (and K2 in
-   ``turbo_check``) counted per tool.
+   ``turbo_check``) counted per tool;
+18. the data-parallel train step, ``Trainer(mesh=)``, lite0 at 320 on
+   phase 13's synthetic plates augmented on the card (B = 32 global), over
+   ``make_mesh()`` (every card) and one card as ``[cuda:0] * 2`` and
+   ``* 4``, with every count at 0 before (a) and read after (b) (no kernel
+   lies on this path): (a) two steps over each mesh against two one-device steps
+   on the same card and batch, in float64 and float32 within
+   ``TRAIN_BOUNDS``, and in bfloat16 within ``TRAIN_BOUNDS["bfloat16"]``
+   (losses; each group of the state as one vector against the larger of
+   the two lanes' own bf16-against-float32 distances); (b) the float32
+   step over each mesh of more than one share beside the one-device step,
+   by CUDA events in turns (median of 6 each), with the device's busy
+   time, idle share and peak memory, beside the card's name and power
+   limit; (c) ``entry.dryrun_multichip`` over ``[cuda:0] * 2`` in this
+   process, its train step through the global BatchNorm statistics, the
+   same number of reductions a share.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -1189,6 +1205,10 @@ def main(argv=None) -> int:
     # 17. The bench, the entry points and the measurement tools.
     records[0]["bench_launches"], records[1]["bench_launches"], records[0]["measure_launches"], \
         records[1]["measure_launches"] = _bench_phase(kernels)
+    # 18. The data-parallel train step.
+    dp = _dp_train_phase(kernels)
+    for record in records:
+        record["dp_train_launches"] = dp[record["name"]]
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1723,7 +1743,7 @@ def _step_ratios(cpu, card, bounds) -> dict:
         want, got = getattr(cpu, name), getattr(card, name)
         if name == "opt_state":
             want, got = want.trace, got.trace
-        return max(float((got[k].cpu().double() - w.double()).abs().max()) / bound(w)
+        return max(float((got[k].cpu().double() - w.cpu().double()).abs().max()) / bound(w)
                    for k, w in want.items())
 
     moved = lambda w: atol + TRAIN_CHECK_LR * trace_rtol * trace_max  # noqa: E731
@@ -1732,16 +1752,16 @@ def _step_ratios(cpu, card, bounds) -> dict:
             "trace": worst("opt_state", lambda w: trace_rtol * trace_max)}
 
 
-def _check_batches() -> dict:
-    """One batch of ``STEP_CHECK_BATCH`` plate images augmented with the same
-    draws on the CPU and on the card: ``{device: batch}``."""
+def _check_batches(n: int = STEP_CHECK_BATCH, devices=("cpu", "cuda")) -> dict:
+    """One batch of ``n`` plate images augmented with the same draws on each
+    of ``devices``: ``{device: batch}``."""
     import torch
     from vbt_tpu_torch.train.augment import augment_mosaic_and_normalize, draw_mosaic
 
-    data = _train_data(STEP_CHECK_BATCH, seed=3)
-    draws = draw_mosaic(torch.Generator().manual_seed(0), STEP_CHECK_BATCH, TRAIN_SIZE)
+    data = _train_data(n, seed=3)
+    draws = draw_mosaic(torch.Generator().manual_seed(0), n, TRAIN_SIZE)
     batches = {}
-    for device in ("cpu", "cuda"):
+    for device in devices:
         on = lambda t: None if t is None else t.to(device)  # noqa: E731
         batches[device] = dict(zip(("images", "gt_boxes", "gt_valid"), augment_mosaic_and_normalize(
             *(torch.from_numpy(a).to(device) for a in (data.images, data.boxes, data.valid)),
@@ -1749,15 +1769,16 @@ def _check_batches() -> dict:
     return batches
 
 
-def _two_steps(spec, device, dtype, batch):
-    """Two train steps from the seed-0 state on ``device`` in ``dtype``:
-    (losses, final state, seconds)."""
+def _two_steps(spec, device, dtype, batch, mesh=None, variables=None):
+    """Two train steps from the seed-0 state (``variables``, if given, are
+    its model variables) on ``device`` in ``dtype``, over ``mesh`` if one is
+    given: (losses, final state, seconds)."""
     from vbt_tpu_torch.train.train_step import Trainer
 
     t0 = time.perf_counter()
     trainer = Trainer(spec, base_lr=TRAIN_CHECK_LR, total_steps=10, warmup_steps=1,
-                      input_size=TRAIN_SIZE, dtype=dtype, device=device)
-    state = trainer.init_state(seed=0)
+                      input_size=TRAIN_SIZE, dtype=dtype, device=device, mesh=mesh)
+    state = trainer.init_state(seed=0) if variables is None else trainer.state_from(variables)
     batch = {k: v.to(device) for k, v in batch.items()}
     losses = []
     for _ in range(2):
@@ -2477,6 +2498,9 @@ BENCH_LANES = {"plain": [], "int8": ["--int8"], "turbo": ["--turbo"],
                "approx": ["--approx_prefilter"]}
 BENCH_TIMEOUT_S = 300  # a lane: the probe's child and the measurement's
 TOOL_BATCHES = ["64", "128"]
+# Phase 18: one card as this many devices, beside every card; turns of the timing.
+DP_SHARES = (2, 4)
+DP_TURNS = 3
 
 
 def _bench_phase(kernels) -> tuple[dict, dict, dict, dict]:
@@ -2574,6 +2598,145 @@ def _bench_phase(kernels) -> tuple[dict, dict, dict, dict]:
             os.environ["VBT_TORCH_HEALTH_PROBE"] = probe
     print(f"phase 17 {time.perf_counter() - t_phase:.1f} s")
     return bench_k1, bench_k2, tool_k1, tool_k2
+
+
+def _dp_meshes() -> dict:
+    """Phase 18's meshes: every card of the machine, and one card as 2 and
+    4 devices (``DP_SHARES``), by label."""
+    import torch
+    from vbt_tpu_torch.parallel.mesh import make_mesh
+
+    cards = make_mesh()
+    meshes = {f"make_mesh() ({len(cards)} card{'s' * (len(cards) > 1)})": cards}
+    for n in DP_SHARES:
+        meshes[f"[cuda:0] * {n}"] = [torch.device("cuda", 0)] * n
+    return meshes
+
+
+def _hold_dp_steps(spec, batch, meshes) -> None:
+    """Phase 18 (a): two steps over each mesh against two one-device steps
+    on the same card and batch, in float64 and float32 under
+    ``TRAIN_BOUNDS``, then in bfloat16: the losses within
+    ``TRAIN_BOUNDS["bfloat16"]`` and each group's distance from the
+    one-device bf16 state within its factor of the larger of the two
+    lanes' own bf16-against-float32 distances, plus the floor."""
+    import torch
+    from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
+
+    ok, states = True, {}
+    variables = DetectionPipeline.init_variables(spec, 0)  # Trainer.init_state(seed=0)'s
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        closs, ref, ref_s = _two_steps(spec, "cuda", dtype, batch, variables=variables)
+        states["one", name] = ref
+        for label, mesh in meshes.items():
+            gloss, got, got_s = _two_steps(spec, "cuda", dtype, batch, mesh, variables)
+            states[label, name] = got
+            loss_rel = max(abs(g - c) / abs(c) for g, c in zip(gloss, closs))
+            if name == "bfloat16":
+                loss_rtol, factor, floor = TRAIN_BOUNDS[name]
+                across = _distances(got, ref)
+                own = {lane: _distances(states[lane, name], states[lane, "float32"])
+                       for lane in ("one", label)}
+                ratios = {g: across[g] / (factor * max(own["one"][g], own[label][g]) + floor)
+                          for g in across}
+            else:
+                loss_rtol = TRAIN_BOUNDS[name][0]
+                ratios = _step_ratios(ref, got, TRAIN_BOUNDS[name])
+            print(f"dp train step over {label}, lite0 {TRAIN_SIZE}, B = {TRAIN_BATCH}, {name}, "
+                  f"against one device (one device {ref_s:.1f} s, mesh {got_s:.1f} s for 2 "
+                  f"steps): losses {closs} / {gloss} (max rel {loss_rel:.3g}, bound "
+                  f"{loss_rtol}); largest difference over its bound {TRAIN_BOUNDS[name]}: "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in ratios.items()))
+            ok = ok and loss_rel <= loss_rtol and max(ratios.values()) <= 1
+    if not ok:
+        raise AssertionError("dp train step: a mesh disagrees with one device beyond the bounds")
+
+
+def _time_dp_steps(spec, batch, meshes) -> None:
+    """Phase 18 (b): the float32 step over each mesh of more than one share
+    beside the one-device step, by CUDA events in turns (``DP_TURNS`` turns
+    of each order, so twice as many samples each), with the device's busy
+    time (``torch.profiler``), idle share and peak memory."""
+    import torch
+    from vbt_tpu_torch.train.train_step import Trainer
+
+    runs = {}
+    for label, mesh in {"one device": None, **meshes}.items():
+        if mesh is not None and len(mesh) == 1:
+            continue  # the one-device step
+        trainer = Trainer(spec, base_lr=TRAIN_CHECK_LR, total_steps=TRAIN_STEPS,
+                          warmup_steps=1, input_size=TRAIN_SIZE, device="cuda", mesh=mesh)
+        runs[label] = (trainer, trainer.init_state(seed=0))
+    step_ms = {label: [] for label in runs}
+    for _ in range(DP_TURNS):
+        for label in [*runs, *reversed(runs)]:
+            trainer, state = runs[label]
+            step_ms[label].append(_cuda_ms(lambda: trainer.train_step(state, batch), reps=3,
+                                           warmup=1))
+    one_ms = float(np.median(step_ms["one device"]))
+    for label, (trainer, state) in runs.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2):
+            trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        busy_us, _ = _device_profile(lambda: trainer.train_step(state, batch))
+        ms = float(np.median(step_ms[label]))
+        idle = f"{1 - busy_us / 1e3 / ms:.3f}" if busy_us else "not measured"
+        print(f"dp train step [{label}] ({_nvidia_smi()}), float32, B = {TRAIN_BATCH}: median "
+              f"{ms:.3f} ms of " + " / ".join(f"{t:.3f}" for t in step_ms[label])
+              + f" in turns ({TRAIN_BATCH / ms * 1e3:.1f} images/s, {ms / one_ms:.3f}x the "
+              f"one-device step); device busy {busy_us / 1e3:.3f} ms a step, idle share "
+              f"{idle}; peak memory {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
+              f"above the {base / 2**30:.3f} GiB held before the steps)")
+
+
+def _dp_train_phase(kernels) -> dict:
+    """Phase 18 (see the module docstring). Returns each kernel's launches
+    in its train steps: none lies on this path."""
+    import torch
+    from vbt_tpu_torch import entry
+    from vbt_tpu_torch.models import get_model_spec
+    from vbt_tpu_torch.parallel import data_parallel
+
+    t_phase = time.perf_counter()
+    spec = get_model_spec("efficientdet_lite0_whole")
+    batch = _check_batches(TRAIN_BATCH, ("cuda",))["cuda"]
+    meshes = _dp_meshes()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    _hold_dp_steps(spec, batch, meshes)
+    t1 = time.perf_counter()
+    _time_dp_steps(spec, batch, meshes)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print(f"kernel launches in the data-parallel steps of phase 18: {launches}; (a) took "
+          f"{t1 - t0:.1f} s, (b) {time.perf_counter() - t1:.1f} s")
+    if any(launches.values()):
+        raise AssertionError(f"dp train steps launched {launches}")
+    # (c) The driver's dry run over two shares of the card, in this process:
+    # its train step through the global statistics, as many a share.
+    calls = {}
+    stats = data_parallel.GlobalBatchStats.stats
+
+    def counted(self, share, x):
+        calls[share] = calls.get(share, 0) + 1
+        return stats(self, share, x)
+
+    data_parallel.GlobalBatchStats.stats = counted
+    try:
+        entry.dryrun_multichip(2, [torch.device("cuda", 0)] * 2)
+    finally:
+        data_parallel.GlobalBatchStats.stats = stats
+    print(f"dryrun_multichip over [cuda:0] * 2: ok, BatchNorm reductions a share {calls}")
+    if sorted(calls) != [0, 1] or calls[0] != calls[1]:
+        raise AssertionError(f"dp dry run: reductions {calls}")
+    print(f"phase 18 {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def _host_s(fn) -> float:

@@ -32,7 +32,9 @@ version on CPU copies: bit for bit, int32 accumulators; the int8 lane's top
 boxes within 0.05 of the frame of the bf16 lane's (the bound the bf16 lane
 is held to against float32). Training: train-mode BatchNorm 1e-5, and two
 train steps (float32 and float64) against the CPU port under
-``chip_smoke.py``'s phase-13 bounds. The bench in each lane in-process at
+``chip_smoke.py``'s phase-13 bounds, and two data-parallel steps over the
+card twice against two one-device steps under the same bounds. The bench
+in each lane in-process at
 B = 16 (a valid line, ``0 < mfu <= 1``, K1 launched, K2 through "mma" in
 the turbo lane only) and the entry's dry run over the card twice.
 """
@@ -759,3 +761,48 @@ def test_dryrun_over_one_card_twice(dev):
     from vbt_tpu_torch.entry import dryrun_multichip
 
     dryrun_multichip(2, devices=[dev, dev])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_data_parallel_step_over_one_card_twice_equals_one_device(dev, dtype):
+    """Two ``Trainer(mesh=[dev, dev])`` steps of lite0 at 128 px, B = 4 global,
+    against two one-device steps on the card from one state and one batch,
+    under the phase-13 bounds (the shares' batch statistics are summed in
+    another order, and cuDNN picks its kernels for B = 2); a device other
+    than the mesh's first is refused."""
+    from vbt_tpu_torch.io.synthetic import plate_boxes, plate_frames
+    from vbt_tpu_torch.models import get_model_spec
+    from vbt_tpu_torch.train.train_step import Trainer
+
+    rtol, trace_rtol, atol = {"float32": (1e-4, 5e-2, 1e-5), "float64": (1e-9, 1e-7, 1e-12)}[dtype]
+    b, size, lr = 4, 128, 0.01
+    spec = get_model_spec("efficientdet_lite0")
+    images = (torch.from_numpy(plate_frames(b, size, size, seed=1)).float() - 127) / 128
+    batch = {"images": images.permute(0, 3, 1, 2).contiguous().to(dev),
+             "gt_boxes": torch.from_numpy(plate_boxes(b, size, size)).float()[:, None].to(dev),
+             "gt_valid": torch.ones(b, 1, dtype=torch.bool, device=dev)}
+    runs = []
+    for mesh in (None, [dev, dev]):
+        trainer = Trainer(spec, base_lr=lr, total_steps=10, warmup_steps=1, input_size=size,
+                          dtype=getattr(torch, dtype), device=dev, mesh=mesh)
+        state = trainer.init_state(seed=0)
+        losses = []
+        for _ in range(2):
+            state, metrics = trainer.train_step(state, batch)
+            losses.append(float(metrics["loss"]))
+        runs.append((losses, state))
+    (oloss, one), (dloss, dp) = runs
+    assert dp.step == one.step == 2
+    for g, c in zip(dloss, oloss):
+        assert abs(g - c) <= rtol * abs(c)
+    top = max(t.abs().max().item() for t in one.opt_state.trace.values())
+    diff = lambda a, k, w: (a[k] - w).abs().max().item()  # noqa: E731
+    for k, want in one.opt_state.trace.items():
+        assert diff(dp.opt_state.trace, k, want) <= trace_rtol * top, k
+    for name in ("params", "ema_params"):
+        for k, want in getattr(one, name).items():
+            assert diff(getattr(dp, name), k, want) <= atol + lr * trace_rtol * top, k
+    for k, want in one.batch_stats.items():
+        assert diff(dp.batch_stats, k, want) <= atol + rtol * want.abs().max().item(), k
+    with pytest.raises(ValueError, match="mesh's first device"):
+        Trainer(spec, input_size=size, device="cpu", mesh=[dev, dev])

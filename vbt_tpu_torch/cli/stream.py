@@ -37,14 +37,15 @@ def _fmt_rep(i: int, phase) -> str:
 
 
 def run_stream(src, model: str, detection_threshold: float, chunk_size: int,
-               plate_diameter: float, follow_id: int, out=sys.stdout, detector=None,
-               device="cuda"):
+               plate_diameter: float, follow_id: int, out=sys.stdout,
+               allow_random: bool = False, detector=None, device="cuda"):
     """Drive one streaming session; returns the final phase list.
 
     ``detector`` injects a prebuilt detection pipeline (tests use a
     deterministic pixel detector); by default the shipped weights named by
     ``model`` are served on ``device`` as ``vbt-torch-track`` serves them,
-    after the card's health probe."""
+    after the card's health probe (random weights for a missing checkpoint
+    only with ``allow_random``)."""
     from vbt_tpu_torch.io.video import VideoReader
     from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
     from vbt_tpu_torch.runtime.streaming import StreamingPipeline
@@ -54,7 +55,8 @@ def run_stream(src, model: str, detection_threshold: float, chunk_size: int,
     if detector is None:
         enable_persistent_cache()
         require_healthy_device(device, context="stream")  # fail fast on a wedged card
-        detector = DetectionPipeline.from_model_arg(model, device=device)
+        detector = DetectionPipeline.from_model_arg(model, device=device,
+                                                    allow_random=allow_random)
     reader = VideoReader(src, batch_size=chunk_size,
                          lend=getattr(detector, "lend_frames", None))
     fps = reader.meta.fps

@@ -10,12 +10,12 @@ Port of the JAX package's ``__graft_entry__.py``:
   :meth:`~vbt_tpu_torch.runtime.pipeline.DetectionPipeline.init_variables`
   weights and zero frames (4, 720, 1280, 3) uint8;
 - :func:`dryrun_multichip` runs the three checks of
-  ``__graft_entry__.py:172-244`` over ``n`` devices: one ``Trainer`` step at
-  128 px on a global batch of ``n``, on the first device (JAX's
-  data-parallel step is GSPMD's, the one-device arithmetic over the global
-  batch; the port's ``Trainer(mesh=)`` only stores the devices); batched
-  inference with the batch split over the devices, a shard on each, whose
-  concatenation equals the one-device ``eval_forward``; and the time-sharded
+  ``__graft_entry__.py:172-244`` over ``n`` devices: one data-parallel
+  ``Trainer(mesh=)`` step at 128 px on a global batch of ``n``, an image a
+  device, with the BatchNorm statistics of the global batch (what GSPMD
+  makes of JAX's jitted step on the sharded batch); batched inference
+  through the same trainer's ``eval_forward``, a shard of the batch on each
+  device, equal to the one-device ``eval_forward``; and the time-sharded
   tracker relay against one ``track_video``.
 
 ``python -m vbt_tpu_torch.entry [--device cpu] [--devices D,D,...]`` runs
@@ -27,7 +27,6 @@ every card, or ``cpu,cpu`` with ``--device cpu``.
 from __future__ import annotations
 
 import argparse
-import copy
 
 import numpy as np
 import torch
@@ -96,7 +95,6 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     from vbt_tpu_torch.models import get_model_spec
     from vbt_tpu_torch.parallel.mesh import make_mesh
     from vbt_tpu_torch.parallel.time_shard import track_video_time_sharded
-    from vbt_tpu_torch.runtime.checkpoint import load_into
     from vbt_tpu_torch.tracking.scan import ScanTrackerConfig, track_video
     from vbt_tpu_torch.train.train_step import Trainer
 
@@ -105,9 +103,9 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
     first = mesh[0]
     spec = get_model_spec("efficientdet_lite0")
 
-    # 1. One train step over the global batch of n, on the first device.
-    trainer = Trainer(spec, base_lr=0.01, total_steps=10, warmup_steps=1, input_size=SIZE,
-                      mesh=mesh, device=first)
+    # 1. One data-parallel train step over the global batch of n.
+    kw = dict(base_lr=0.01, total_steps=10, warmup_steps=1, input_size=SIZE)
+    trainer = Trainer(spec, mesh=mesh, **kw)
     state = trainer.init_state(seed=0)
     batch = _train_batch(n, first)
     new_state, metrics = trainer.train_step(state, batch)
@@ -115,15 +113,9 @@ def dryrun_multichip(n_devices: int, devices=None) -> None:
         raise AssertionError(f"train step: step {new_state.step}, loss {metrics['loss']}")
 
     # 2. Batched inference, a shard of the batch on each device.
-    want = trainer.eval_forward(new_state, batch["images"])
-    variables = trainer.variables(new_state)
-    parts = []
-    for dev, shard in zip(mesh, batch["images"].chunk(n)):
-        replica = load_into(copy.deepcopy(trainer.model), variables).to(dev).eval()
-        with torch.no_grad():
-            parts.append(replica(shard.to(dev)))
-    for got, ref, name in zip(zip(*parts), want, ("deltas", "logits")):
-        got = torch.cat([g.to(first) for g in got])
+    sharded = trainer.eval_forward(new_state, batch["images"])
+    want = Trainer(spec, device=first, **kw).eval_forward(new_state, batch["images"])
+    for got, ref, name in zip(sharded, want, ("deltas", "logits")):
         if got.shape != ref.shape:
             raise AssertionError(f"sharded {name}: shape {tuple(got.shape)}, want "
                                  f"{tuple(ref.shape)}")

@@ -99,6 +99,10 @@ class BatchNorm(nn.Module):
     place, ``r <- 0.99 r + 0.01 batch``, the variance biased too.
     ``F.batch_norm(training=True)`` is not that: it stores the unbiased
     variance and reads its momentum the other way round.
+
+    ``reduce_stats``, unset but in the data-parallel train step
+    (``parallel.data_parallel``), takes the float activations of this
+    share and returns the global batch's (mean, var) in their place.
     """
 
     def __init__(self, channels: int):
@@ -107,14 +111,18 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(channels))
         self.register_buffer("running_mean", torch.empty(channels))
         self.register_buffer("running_var", torch.empty(channels))
+        self.reduce_stats = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=BN_EPS)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.reduce_stats is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        else:
+            mean, var = self.reduce_stats(xf)
         with torch.no_grad():
             self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean)
             self.running_var.copy_(BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)

@@ -133,14 +133,20 @@ class DetectionPipeline:
 
     @classmethod
     def from_model_arg(cls, model: str, device: str | torch.device = "cuda",
-                       dtype: torch.dtype | None = None,
-                       backbone: str = "xla", prefilter: str = "exact") -> "DetectionPipeline":
+                       dtype: torch.dtype | None = None, seed: int = 0,
+                       allow_random: bool = False, backbone: str = "xla",
+                       prefilter: str = "exact") -> "DetectionPipeline":
+        """The pipeline of a --model argument (:func:`resolve_model`). A
+        missing checkpoint is refused unless ``allow_random``, which serves
+        :meth:`init_variables` drawn from ``seed``."""
         spec, ckpt = resolve_model(model)
-        if ckpt is None:
+        if ckpt is None and not allow_random:
             raise FileNotFoundError(
                 f"No trained weights found for --model {model!r}: expected a "
-                f".msgpack checkpoint at that path or a sibling of it.")
-        return cls(spec, load_checkpoint(ckpt), device=device, dtype=dtype, backbone=backbone,
+                f".msgpack checkpoint at that path or a sibling of it. Pass "
+                f"allow_random=True only for tests that intend random weights.")
+        variables = cls.init_variables(spec, seed) if ckpt is None else load_checkpoint(ckpt)
+        return cls(spec, variables, device=device, dtype=dtype, backbone=backbone,
                    prefilter=prefilter)
 
     @staticmethod

@@ -34,8 +34,10 @@ back float32 through the casts.
 
 from __future__ import annotations
 
+import copy
 from collections import OrderedDict
 from dataclasses import replace
+from functools import partial
 from typing import NamedTuple
 
 import numpy as np
@@ -44,7 +46,10 @@ from torch.func import functional_call
 
 from vbt_tpu_torch.models import EfficientDet, ModelSpec
 from vbt_tpu_torch.models.anchors import generate_anchors
-from vbt_tpu_torch.models.conv import Conv2dSame
+from vbt_tpu_torch.models.conv import BatchNorm, Conv2dSame
+from vbt_tpu_torch.parallel.data_parallel import GlobalBatchStats, ShareThreads, Turns
+from vbt_tpu_torch.parallel.mesh import make_mesh
+from vbt_tpu_torch.runtime.batch_runner import shard_clips
 from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
 from vbt_tpu_torch.train.losses import detection_loss
 from vbt_tpu_torch.train.targets import assign_targets
@@ -155,28 +160,46 @@ def ema_decay_at(step: int, ema_decay: float) -> tuple[float, float]:
 
 
 class Trainer:
-    """Owns the model, anchors, optimizer and the step functions, on one
-    device (``"cuda"`` unless the caller asks for the CPU). ``dtype`` is the
-    compute dtype; the state is float32 under bfloat16 compute, else
+    """Owns the model, anchors, optimizer and the step functions, on
+    ``device`` (``"cuda"`` unless the caller asks for the CPU). ``dtype`` is
+    the compute dtype; the state is float32 under bfloat16 compute, else
     ``dtype``.
 
-    ``mesh`` is stored and nothing reads it, as in the JAX package, whose
-    data-parallel step is GSPMD's: the one-device arithmetic over the global
-    batch. The step runs on ``device`` over the whole batch; an exact step
-    over several cards would need cross-card BatchNorm statistics and a
-    gradient all-reduce, which no caller asks for."""
+    ``mesh``, an ordered device list (``parallel.mesh.make_mesh``), makes
+    the steps data-parallel, as the JAX package's jitted step is on a batch
+    sharded over a ``('data',)`` mesh. The state lives on ``mesh[0]`` (the
+    default ``device``; another one is refused). The global batch is split
+    into equal contiguous shares, one a device in mesh order
+    (``runtime.batch_runner.shard_clips``); share 0 runs ``self.model``,
+    each other share a replica of it made here (a ``[cpu, cpu]`` mesh has
+    two). Each share runs the forward of its images in a thread of its own,
+    the shares taking turns, reading the parameters through differentiable
+    copies, and every train-mode BatchNorm normalizes with the global
+    batch's statistics (``parallel.data_parallel``). The outputs are gathered
+    on ``mesh[0]``, where the targets, the loss (over the global positive
+    count), one backward (the shares' gradients arrive summed), the
+    optimizer and the EMA run as on one device. That is the one-device
+    arithmetic over the global batch, which is what GSPMD computes, with
+    the batch sums in another order. A mesh of one device is the one-device
+    step."""
 
     def __init__(self, spec: ModelSpec, base_lr: float = 0.08, total_steps: int = 1000,
                  warmup_steps: int = 100, dtype: torch.dtype = torch.float32,
                  input_size: int | None = None, ema_decay: float = 0.9998,
-                 freeze_top_keys: tuple = (), device: str | torch.device = "cuda", mesh=None):
+                 freeze_top_keys: tuple = (), device: str | torch.device | None = None,
+                 mesh=None):
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {DTYPES}, got {dtype}")
         self.dtype = dtype
         self.state_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
+        self.mesh = None if mesh is None else [resolve_device(d) for d in make_mesh(devices=mesh)]
+        if device is None:
+            device = "cuda" if self.mesh is None else self.mesh[0]
         self.device = resolve_device(device)
+        if self.mesh is not None and self.device != self.mesh[0]:
+            raise ValueError(f"device {self.device} is not the mesh's first device "
+                             f"{self.mesh[0]}, where the state lives")
         self.ema_decay = ema_decay
-        self.mesh = mesh
         self.freeze_top_keys = tuple(freeze_top_keys)
         self.spec = spec
         self.input_size = input_size or spec.input_size
@@ -192,12 +215,18 @@ class Trainer:
         if self.input_size != cfg.input_size:
             cfg = replace(cfg, input_size=self.input_size)
         self.anchors = torch.from_numpy(generate_anchors(cfg)).to(self.device)
+        # The model of each share: this one, then a replica a further share.
+        self.share_models = [self.model] + [copy.deepcopy(self.model).to(dev)
+                                            for dev in (self.mesh or [])[1:]]
+        self.share_threads = ShareThreads(self.mesh) if len(self.share_models) > 1 else None
         self.tx, self.schedule = make_optimizer(base_lr, total_steps, warmup_steps,
                                                 freeze_top_keys=self.freeze_top_keys)
 
-    def init_state(self, seed: int = 0) -> TrainState:
+    def init_state(self, seed: int = 0, input_size: int | None = None) -> TrainState:
         """A fresh state from flax's initializers, drawn from ``seed`` on the
-        CPU (the same parameters on every device)."""
+        CPU (the same parameters on every device). ``input_size`` is JAX's
+        size of the dummy image its init traces; no shape depends on it, so
+        it is accepted and not read."""
         return self.state_from(DetectionPipeline.init_variables(self.spec, seed))
 
     def state_from(self, state_dict: dict) -> TrainState:
@@ -232,9 +261,7 @@ class Trainer:
         # but for the frozen subtrees, which run on theirs and leave them.
         stats = {k: (v if self.is_frozen(k) else v.clone()) for k, v in state.batch_stats.items()}
         self.model.train()
-        images = batch["images"].to(self.dtype)
-        deltas, logits = functional_call(self.model, {**self._compute(params), **stats},
-                                         (images,))
+        deltas, logits = self._forward(params, stats, batch["images"].to(self.dtype))
         total, metrics = detection_loss(deltas, logits, box_t, cls_t, pos, ign)
         grads = dict(zip(self.trainable,
                          torch.autograd.grad(total, [params[k] for k in self.trainable])))
@@ -253,10 +280,42 @@ class Trainer:
 
     @torch.no_grad()
     def eval_forward(self, state: TrainState, images: torch.Tensor):
-        """(deltas, logits) with the running statistics; no update."""
+        """(deltas, logits) with the running statistics; no update. Over a
+        mesh each device runs its share and the outputs are concatenated on
+        ``mesh[0]``."""
         self.model.eval()
-        return functional_call(self.model, {**self._compute(state.params), **state.batch_stats},
-                               (images.to(self.dtype),))
+        return self._forward(state.params, state.batch_stats, images.to(self.dtype))
+
+    def _forward(self, params: dict, stats: dict, images: torch.Tensor):
+        """(deltas, logits) of the model in its mode (train or eval) with
+        ``params`` and the running statistics ``stats``, which a train-mode
+        forward updates in place."""
+        tensors = {**self._compute(params), **stats}
+        if len(self.share_models) == 1:
+            return functional_call(self.model, tensors, (images,))
+        shares = shard_clips(self.mesh, images)  # refuses a batch that does not split
+        train = self.model.training
+        turns = Turns(len(self.mesh))
+        reduce = GlobalBatchStats(self.mesh, turns) if train else None
+
+        def share(i: int):
+            dev, model = self.mesh[i], self.share_models[i]
+            model.train(train)
+            placed = tensors
+            if i:  # the first share's statistics are those the step returns
+                placed = {k: v.to(dev, copy=train and k in stats and not self.is_frozen(k))
+                          for k, v in tensors.items()}
+            bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+            for m in bns:
+                m.reduce_stats = None if reduce is None else partial(reduce.stats, i)
+            try:
+                return functional_call(model, placed, shares[i])
+            finally:
+                for m in bns:
+                    m.reduce_stats = None
+
+        outs = self.share_threads.run(share, turns)
+        return tuple(torch.cat([out[j].to(self.device) for out in outs]) for j in range(2))
 
     def eval_loss(self, state: TrainState, batch: dict) -> dict:
         """Validation loss metrics (no parameter or statistics update)."""
