@@ -193,7 +193,25 @@ Phases, each of which raises on failure:
    time, idle share and peak memory, beside the card's name and power
    limit; (c) ``entry.dryrun_multichip`` over ``[cuda:0] * 2`` in this
    process, its train step through the global BatchNorm statistics, the
-   same number of reductions a share.
+   same number of reductions a share;
+19. the end-to-end tools (``vbt_tpu_torch.tools.make_demo_video``,
+   ``.e2e_acv_check``, ``.track_e2e_bench``) from a video file: (a)
+   ``io/synthetic.py::write_demo_scene`` writes the stand-in scene into a
+   temporary directory laid out as ``reference/data/test/``, under the
+   pinned file name; (b) the JAX package's slow lane (3 reps, 30 fps, 9 s,
+   270 frames), the card's lane (bf16, K1, K3) and a float32 CPU lane on
+   the same video, each with the counts at 0: the same rep count, equal to
+   3, the same ``max_travel_id`` track, each rep's ROM within
+   ``E2E_ROM_RTOL`` of the CPU's and its duration (so its ACV) within
+   ``E2E_DURATION_FRAMES`` frames, K1 ``ceil(270 / 64)`` and K3 once on the
+   card and nothing on the CPU; both lanes' errors against the analytic
+   truth and their verdicts printed, not held; (c) ``python -m
+   vbt_tpu_torch.tools.e2e_acv_check`` run in that directory (its own
+   probe of the card), its exit code the card lane's verdict, its record
+   naming the card and ``pallas_nms``; (d) the time ``make_demo_video``
+   takes to write a 60 s video, then ``track_e2e_bench`` at 60 s, B = 128
+   in this process, its record printed, K1 once a batch in the warm and
+   the recorded pass and K3 once a pass.
 
 The second-to-last line is the ``{"kernels": [...]}`` record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -208,6 +226,7 @@ import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
@@ -1209,6 +1228,10 @@ def main(argv=None) -> int:
     dp = _dp_train_phase(kernels)
     for record in records:
         record["dp_train_launches"] = dp[record["name"]]
+    # 19. The end-to-end tools.
+    e2e = _e2e_tools_phase(kernels)
+    for record in records:
+        record["e2e_launches"] = e2e[record["name"]]
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2500,7 +2523,18 @@ BENCH_TIMEOUT_S = 300  # a lane: the probe's child and the measurement's
 TOOL_BATCHES = ["64", "128"]
 # Phase 18: one card as this many devices, beside every card; turns of the timing.
 DP_SHARES = (2, 4)
-DP_TURNS = 3
+# Phase 19: the slow lane of the JAX package's e2e check, and its track bench.
+E2E_REPS, E2E_FPS, E2E_SECONDS = 3, 30.0, 9.0
+E2E_BENCH_SECONDS = 60.0
+# Each rep, the card's bf16 lane against the CPU's float32 lane on the same
+# video: ROM within E2E_ROM_RTOL relative, the duration within
+# E2E_DURATION_FRAMES frames; ACV = ROM / duration follows (at most 8.6%
+# for the stand-in's 43-frame reps). The first chip run (H100, 700 W)
+# measured ROM 8.5e-4 to 3.7e-3 apart, durations 0 to 2 frames and ACV
+# 8.5e-4 to 4.3e-2: bf16 moves where a rep starts or ends by a frame or
+# two, 2.3% of its duration each.
+E2E_ROM_RTOL, E2E_DURATION_FRAMES = 1e-2, 3
+DP_TURNS = 2
 
 
 def _bench_phase(kernels) -> tuple[dict, dict, dict, dict]:
@@ -2562,10 +2596,8 @@ def _bench_phase(kernels) -> tuple[dict, dict, dict, dict]:
         raise AssertionError(f"entry: {proc.stderr[-4000:]}")
 
     # The tools in this process; phase 14 probed the card.
-    probe = os.environ.get("VBT_TORCH_HEALTH_PROBE")
-    os.environ["VBT_TORCH_HEALTH_PROBE"] = "0"
     tool_k1, tool_k2 = {}, {}
-    try:
+    with mock.patch.dict(os.environ, {"VBT_TORCH_HEALTH_PROBE": "0"}):
         tools = {
             "roofline": lambda: roofline.main(
                 ["--out", os.path.join(REPO, "out", "chip_smoke_roofline.json")]),
@@ -2591,11 +2623,6 @@ def _bench_phase(kernels) -> tuple[dict, dict, dict, dict]:
                 raise AssertionError(f"tools.{name} launched no NMS")
         if tool_k2["turbo_check"] == 0:
             raise AssertionError("tools.turbo_check launched no fused MBConv")
-    finally:
-        if probe is None:
-            del os.environ["VBT_TORCH_HEALTH_PROBE"]
-        else:
-            os.environ["VBT_TORCH_HEALTH_PROBE"] = probe
     print(f"phase 17 {time.perf_counter() - t_phase:.1f} s")
     return bench_k1, bench_k2, tool_k1, tool_k2
 
@@ -2737,6 +2764,133 @@ def _dp_train_phase(kernels) -> dict:
         raise AssertionError(f"dp dry run: reductions {calls}")
     print(f"phase 18 {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def _e2e_lane(lane, pipe, video, truth, kernels) -> dict:
+    """Phase 19 (b): one lane of ``e2e_acv_check`` on the scene's video,
+    with every count at 0 before and read after."""
+    import torch
+    from vbt_tpu_torch.tools import e2e_acv_check
+
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    fid, measured = e2e_acv_check.measured_phases(pipe, video)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"e2e [{lane}] ({pipe.device}, {pipe.dtype}, NMS kernel {pipe.use_kernel}): track "
+          f"{fid}, {len(measured)} reps, {wall:.2f} s; launches {launches}")
+    ok, errors = e2e_acv_check.compare(truth, measured, E2E_REPS)
+    print(f"e2e [{lane}]: {'PASS' if ok else 'FAIL'} against the "
+          f"{e2e_acv_check.BUDGET:.0%} budget (printed, not held: the stand-in scene's verdict)")
+    return {"fid": fid, "measured": measured, "ok": ok, "errors": errors,
+            "launches": launches}
+
+
+def _e2e_tools_phase(kernels) -> dict:
+    """Phase 19 (see the module docstring). Returns each kernel's launches
+    in (b)'s card lane and (d)."""
+    import tempfile
+
+    import torch
+    from vbt_tpu_torch.io.synthetic import write_demo_scene
+    from vbt_tpu_torch.ops import _build
+    from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
+    from vbt_tpu_torch.tools import e2e_acv_check, make_demo_video, track_e2e_bench
+
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as root:
+        # (a) The stand-in scene, laid out as the reference's test set.
+        data = os.path.join(root, make_demo_video.DATA)
+        os.makedirs(data)
+        box = write_demo_scene(data, e2e_acv_check.SCENE_IMAGE)
+        os.chdir(root)
+        try:
+            # (b) run_check's pieces on one video, the card's lane and the CPU's.
+            video = os.path.join(root, "demo.mp4")
+            traj = e2e_acv_check.synthesize_scene(video, E2E_REPS, E2E_FPS, E2E_SECONDS)
+            frames = len(traj["time"])
+            truth = e2e_acv_check.analytic_phases(traj)
+            print(f"e2e scene: {e2e_acv_check.SCENE_IMAGE} (stand-in, plate box {box.tolist()}), "
+                  f"{frames} frames, {len(truth)} analytic reps")
+            lanes = {lane: _e2e_lane(lane, DetectionPipeline.from_model_arg(CKPT, device=device),
+                                     video, truth, kernels)
+                     for lane, device in (("card", "cuda"), ("cpu", "cpu"))}
+            card, cpu = lanes["card"], lanes["cpu"]
+            want = {name: 0 for name in kernels}
+            want.update(nms=-(-frames // 64), track_scan=1)  # track_one's batch of 64
+            if card["launches"] != want or any(cpu["launches"].values()):
+                raise AssertionError(f"e2e launches: card {card['launches']} (want {want}), "
+                                     f"cpu {cpu['launches']}")
+            if not len(card["measured"]) == len(cpu["measured"]) == E2E_REPS:
+                raise AssertionError(f"e2e reps: card {len(card['measured'])}, cpu "
+                                     f"{len(cpu['measured'])}, want {E2E_REPS}")
+            if card["fid"] != cpu["fid"]:
+                raise AssertionError(f"e2e track: card {card['fid']}, cpu {cpu['fid']}")
+            worst = np.zeros(3)  # ROM, duration in frames, ACV
+            for i, (c, f) in enumerate(zip(card["measured"], cpu["measured"]), 1):
+                diff = np.array([abs(c.rom - f.rom) / f.rom,
+                                 abs(c.duration - f.duration) * E2E_FPS,
+                                 abs(c.rom / c.duration - f.rom / f.duration)
+                                 / (f.rom / f.duration)])
+                worst = np.maximum(worst, diff)
+                print(f"e2e rep {i}: card against cpu: ROM {c.rom:.6f} vs {f.rom:.6f} m "
+                      f"({diff[0]:.3e}), duration {c.duration:.4f} vs {f.duration:.4f} s "
+                      f"({diff[1]:.2f} frames), ACV {c.rom / c.duration:.6f} vs "
+                      f"{f.rom / f.duration:.6f} m/s ({diff[2]:.3e})")
+            print(f"e2e card against cpu, largest: ROM {worst[0]:.3e} (bound {E2E_ROM_RTOL}), "
+                  f"duration {worst[1]:.2f} frames (bound {E2E_DURATION_FRAMES}), ACV "
+                  f"{worst[2]:.3e}")
+            if worst[0] > E2E_ROM_RTOL or worst[1] > E2E_DURATION_FRAMES + 1e-6:
+                raise AssertionError(f"e2e: the card's reps from the CPU's {worst}")
+
+            # (c) The CLI as a user runs it, from the scene's directory.
+            out = os.path.join(root, "e2e_record.json")
+            env = dict(os.environ, PYTHONPATH=REPO, VBT_TORCH_BUILD_DIR=str(_build.BUILD_DIR))
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "vbt_tpu_torch.tools.e2e_acv_check", "--device", "cuda",
+                 "--reps", str(E2E_REPS), "--seconds", str(E2E_SECONDS), "--model", CKPT,
+                 "--out", out],
+                cwd=root, env=env, capture_output=True, text=True, timeout=300)
+            print(f"python -m vbt_tpu_torch.tools.e2e_acv_check ({time.perf_counter() - t0:.1f}"
+                  f" s, exit {proc.returncode}):\n{proc.stdout.strip()}")
+            if proc.returncode != (0 if card["ok"] else 1) or not os.path.isfile(out):
+                raise AssertionError(f"e2e_acv_check exited {proc.returncode}, the card's "
+                                     f"verdict {card['ok']}: {proc.stderr[-4000:]}")
+            with open(out) as f:
+                serving = json.load(f)["serving"]
+            print(f"e2e_acv_check record: serving {serving}")
+            if serving["device"] != torch.cuda.get_device_name(0) or not serving["pallas_nms"]:
+                raise AssertionError(f"e2e_acv_check serving record {serving}")
+
+            # (d) The track path's wall time with decode, in this process
+            # (phase 14 probed the card).
+            t0 = time.perf_counter()
+            n = len(e2e_acv_check.synthesize_scene(os.path.join(root, "bench.mp4"), 20,
+                                                   E2E_FPS, E2E_BENCH_SECONDS)["time"])
+            print(f"make_demo_video: {n} frames written in {time.perf_counter() - t0:.2f} s")
+            for k in kernels.values():
+                k.launches = 0
+            with mock.patch.dict(os.environ, {"VBT_TORCH_HEALTH_PROBE": "0"}):
+                record = track_e2e_bench.run(seconds=E2E_BENCH_SECONDS, model=CKPT,
+                                             device="cuda")
+            torch.cuda.synchronize()
+            bench_launches = {name: k.launches for name, k in kernels.items()}
+            want_bench = {name: 0 for name in kernels}
+            want_bench.update(nms=2 * -(-n // 128), track_scan=2)  # the warm and the recorded pass
+            print(f"track_e2e_bench launches {bench_launches} ({_nvidia_smi()})")
+            if bench_launches != want_bench:
+                raise AssertionError(f"track_e2e_bench launches {bench_launches}, want "
+                                     f"{want_bench}")
+            if record["video"]["frames"] != n or record["df_rows"] < n:
+                raise AssertionError(f"track_e2e_bench record {record}")
+        finally:
+            os.chdir(cwd)
+    print(f"phase 19 {time.perf_counter() - t_phase:.1f} s")
+    return {name: card["launches"][name] + bench_launches[name] for name in kernels}
 
 
 def _host_s(fn) -> float:

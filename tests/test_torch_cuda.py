@@ -36,7 +36,9 @@ train steps (float32 and float64) against the CPU port under
 card twice against two one-device steps under the same bounds. The bench
 in each lane in-process at
 B = 16 (a valid line, ``0 < mfu <= 1``, K1 launched, K2 through "mma" in
-the turbo lane only) and the entry's dry run over the card twice.
+the turbo lane only) and the entry's dry run over the card twice. The
+end-to-end check on its stand-in scene: the card's rep count and track id
+equal the CPU port's, K1 and K3 launched once each.
 """
 
 import os
@@ -806,3 +808,31 @@ def test_data_parallel_step_over_one_card_twice_equals_one_device(dev, dtype):
         assert diff(dp.batch_stats, k, want) <= atol + rtol * want.abs().max().item(), k
     with pytest.raises(ValueError, match="mesh's first device"):
         Trainer(spec, input_size=size, device="cpu", mesh=[dev, dev])
+
+
+def test_e2e_check_on_the_card_matches_cpu(dev, tmp_path, monkeypatch):
+    """``tools.e2e_acv_check`` on the stand-in scene at 1 rep / 15 fps / 2 s:
+    the card's lane (bf16, K1 and K3) finds the CPU port's reps and picks
+    its ``max_travel_id`` track."""
+    pytest.importorskip("cv2")
+    pytest.importorskip("pandas")
+    from vbt_tpu_torch.io.synthetic import write_demo_scene
+    from vbt_tpu_torch.ops.nms_cuda import nms
+    from vbt_tpu_torch.ops.track_scan_cuda import track_scan
+    from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
+    from vbt_tpu_torch.tools import e2e_acv_check, make_demo_video
+
+    monkeypatch.setattr(make_demo_video, "DATA", str(tmp_path))
+    write_demo_scene(str(tmp_path), e2e_acv_check.SCENE_IMAGE)
+    video = str(tmp_path / "demo.mp4")
+    traj = e2e_acv_check.synthesize_scene(video, reps=1, fps=15.0, seconds=2.0)
+    got = {}
+    for device in ("cpu", "cuda"):
+        nms.launches = track_scan.launches = 0
+        pipe = DetectionPipeline.from_model_arg(CKPT, device=device)
+        fid, phases = e2e_acv_check.measured_phases(pipe, video)
+        got[device] = (fid, len(phases), nms.launches, track_scan.launches)
+        ok, errors = e2e_acv_check.run_check(video, traj, 1, pipeline=pipe, verbose=False)
+        assert len(errors) == 1, errors
+    assert got["cuda"][:2] == got["cpu"][:2] and got["cpu"][1] == 1
+    assert got["cpu"][2:] == (0, 0) and got["cuda"][2:] == (1, 1)  # 30 frames: one batch

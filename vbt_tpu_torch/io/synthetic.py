@@ -11,6 +11,9 @@ write them to a video.
 the ground truth of the detector's evaluation on them; :func:`write_voc`
 writes such frames and boxes as a PASCAL-VOC directory (JPG and XML, cv2
 imported inside) for the evaluation and training CLIs.
+:func:`write_demo_scene` writes one still image of a smaller disc with its
+XML, the stand-in scene of the end-to-end tools (``tools/make_demo_video``
+pans a window over it).
 :func:`plate_track_data` is the disc's exact track as the track CLI's
 capture dict, a stand-in for a tracked video's dataframe.
 :func:`plate_track_meters` is the disc's trajectory in meters, which
@@ -30,32 +33,41 @@ import numpy as np
 
 PLATE_AMPLITUDE = 0.15  # of the frame height: the disc's center moves +-0.15 H
 PLATE_RADIUS = 0.3  # of the frame height
+DEMO_DIAMETER = 0.2  # of the height: the disc of write_demo_scene
 
 
 def plate_frames(n: int, height: int, width: int, seed: int = 0,
                  period: int = 32) -> np.ndarray:
     """``n`` uint8 RGB frames (n, height, width, 3); the disc's center
     moves as ``0.5 + PLATE_AMPLITUDE sin(2 pi t / period)`` of the height."""
-    rng = np.random.default_rng(seed)
-    cell = max(1, height // 30)
-    bg = rng.integers(90, 170, size=(-(-height // cell), -(-width // cell), 3), dtype=np.uint8)
-    bg = np.repeat(np.repeat(bg, cell, 0), cell, 1)[:height, :width]
-    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
-    r = PLATE_RADIUS * height
-    ring = max(1.0, height / 240)
+    bg = _background(height, width, np.random.default_rng(seed))
     out = np.empty((n, height, width, 3), np.uint8)
     for t in range(n):
         cy = height * (0.5 + PLATE_AMPLITUDE * np.sin(2 * np.pi * t / period))
-        cx = width / 2
-        img = bg.copy()
-        img[np.abs(yy - cy) <= height / 80] = 200  # the bar
-        d = np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2)
-        img[d <= r] = 20
-        img[d <= 0.55 * r] = 40
-        img[np.abs(d - 0.55 * r) <= ring] = 90
-        img[d <= 0.12 * r] = 220
-        out[t] = img
+        out[t] = _draw_plate(bg.copy(), cy, width / 2, PLATE_RADIUS * height)
     return out
+
+
+def _background(height: int, width: int, rng) -> np.ndarray:
+    """Blocks of random grey-ish colour, a thirtieth of the height wide."""
+    cell = max(1, height // 30)
+    bg = rng.integers(90, 170, size=(-(-height // cell), -(-width // cell), 3), dtype=np.uint8)
+    return np.repeat(np.repeat(bg, cell, 0), cell, 1)[:height, :width]
+
+
+def _draw_plate(img: np.ndarray, cy: float, cx: float, r: float) -> np.ndarray:
+    """Draw the bar through ``cy`` and the disc of radius ``r`` at (cy, cx)
+    into ``img``; returns it."""
+    height, width = img.shape[:2]
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float32)
+    ring = max(1.0, height / 240)
+    img[np.abs(yy - cy) <= height / 80] = 200  # the bar
+    d = np.sqrt((yy - cy) ** 2 + (xx - cx) ** 2)
+    img[d <= r] = 20
+    img[d <= 0.55 * r] = 40
+    img[np.abs(d - 0.55 * r) <= ring] = 90
+    img[d <= 0.12 * r] = 220
+    return img
 
 
 def plate_boxes(n: int, height: int, width: int, period: int = 32) -> np.ndarray:
@@ -83,12 +95,44 @@ def write_voc(root, sizes, n: int = 2, period: int = 5) -> None:
         for i, (img, box) in enumerate(zip(frames, boxes)):
             name = f"plate_{h}x{w}_{i}"
             cv2.imwrite(os.path.join(root, f"{name}.jpg"), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
-            objects = "".join(
-                f"<object><name>{label}</name><bndbox><xmin>{b[1]}</xmin><ymin>{b[0]}</ymin>"
-                f"<xmax>{b[3]}</xmax><ymax>{b[2]}</ymax></bndbox></object>"
-                for label, b in (("barbell", box), ("person", [0, 0, h // 4, w // 4])))
-            with open(os.path.join(root, f"{name}.xml"), "w") as f:
-                f.write(f"<annotation><filename>{name}.jpg</filename>{objects}</annotation>")
+            _write_voc_xml(os.path.join(root, f"{name}.xml"), f"{name}.jpg",
+                           (("barbell", box), ("person", [0, 0, h // 4, w // 4])))
+
+
+def _write_voc_xml(path, filename: str, objects) -> None:
+    """A VOC annotation of the image ``filename``: one object a (label,
+    [ymin, xmin, ymax, xmax]) of ``objects``."""
+    body = "".join(
+        f"<object><name>{label}</name><bndbox><xmin>{b[1]}</xmin><ymin>{b[0]}</ymin>"
+        f"<xmax>{b[3]}</xmax><ymax>{b[2]}</ymax></bndbox></object>"
+        for label, b in objects)
+    with open(path, "w") as f:
+        f.write(f"<annotation><filename>{filename}</filename>{body}</annotation>")
+
+
+def write_demo_scene(root, name: str, size: int = 416, seed: int = 0) -> np.ndarray:
+    """Write the demo video's stand-in scene into the directory ``root``:
+    the RGB JPEG ``name`` (``size`` x ``size``), one disc of diameter
+    ``DEMO_DIAMETER`` of the height at the centre on a textured background
+    with a bar, and the VOC XML beside it (the image's stem) with that
+    disc's box, label ``barbell``. Returns the box ``[ymin, xmin, ymax,
+    xmax]`` in pixels (int).
+
+    The disc leaves room for ``make_demo_video``'s pan: its box is under
+    0.35 of the height and the window of 0.55 of the height moves it over
+    about 0.35 of the height less 10 pixels. :func:`write_voc`'s plates,
+    0.6 of the height, leave none."""
+    import os
+
+    import cv2
+
+    c, r = size / 2, DEMO_DIAMETER * size / 2
+    img = _draw_plate(_background(size, size, np.random.default_rng(seed)), c, c, r)
+    box = np.rint([c - r, c - r, c + r, c + r]).astype(int)
+    cv2.imwrite(os.path.join(root, name), cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
+    _write_voc_xml(os.path.join(root, os.path.splitext(name)[0] + ".xml"), name,
+                   (("barbell", box),))
+    return box
 
 
 def plate_track_data(n: int, height: int, width: int, period: int = 32,
