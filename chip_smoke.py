@@ -144,10 +144,13 @@ Phases, each of which raises on failure:
    positions and plate sizes within ``ROW_ATOL``, dx/dy within
    ``HOST_DXDY_ATOL``, both times printed, and K3-SORT against its plain
    version on CPU copies as in phase 3; (b) the tools of
-   ``vbt_tpu_torch.tools`` on a VOC directory written by ``write_voc``
-   (15 test images at phase 12's five sizes, 8 train images):
-   ``ckpt_sweep`` over phase 13's checkpoint and a second step trained from
-   it, ``ckpt_soup --top_k 3 --out`` on that sweep's log, the soup reloaded
+   ``vbt_tpu_torch.tools`` on a VOC tree written by ``write_voc`` (15 test
+   images at phase 12's five sizes, 8 train images) laid out as the
+   reference's data, ``reference/data/{train,test}`` under
+   ``out/chip_smoke_tools``, from which they run with no ``data_dir`` (their
+   default, ``tools/_reference.py``; the working directory is restored
+   after): ``ckpt_sweep`` over phase 13's checkpoint and a second step
+   trained from it, ``ckpt_soup --top_k 3 --out`` on that sweep's log, the soup reloaded
    through ``DetectionPipeline`` and equal bit for bit to the float64
    average of its members computed on the CPU; ``ckpt_soup --top_k 3
    --seed_msgpack`` the shipped lite0 over the same checkpoints, each KEEP
@@ -175,7 +178,16 @@ Phases, each of which raises on failure:
    ``python -m vbt_tpu_torch.entry --devices cuda:0,cuda:0`` (``entry ok``,
    ``dryrun ok``, after a data-parallel train step over the two);
    ``tools.roofline``'s table; ``tools.turbo_check`` and
-   ``tools.prefilter_check`` (exit 0; 32 synthetic images, B = 64 and 128);
+   ``tools.prefilter_check`` twice, each run's ``images:`` line's count
+   and source held: from a directory without the reference tree (32
+   synthetic plates, the speed half at B = 64 and 128; exit 0), then from
+   one holding ``reference/data/test/`` of ``CHECK_JPEGS`` (32 ``write_voc``
+   JPEGs, 16 at each of 240x320 and 480x640; the numerics alone; exit 0,
+   but ``turbo_check``'s exit code is held to its printed verdict: its
+   bf16 budget on these JPEGs is a finding, ``PERF.md`` §6), then
+   ``turbo_check``'s two backbones on those JPEGs in float32 (K2's float32
+   kernel) within its budgets, and in bf16 each image beyond them printed
+   with its confident rows and their IoU with a higher row;
    ``tools.int8_profile`` and ``tools.perf_probe`` at B = 64 and 128; the
    tools in this process after phase 14's probe, K1 (and K2 in
    ``turbo_check``) counted per tool;
@@ -2380,29 +2392,22 @@ def _hold_soup_decisions(lines: str, members, final, seed) -> None:
 def _selection_phase(frames, xla, kernels) -> tuple[dict, int]:
     """Phase 15 (see the module docstring). Returns K1's launches by tool
     and K3's in (a)."""
-    import io
     import shutil
 
-    import torch
     from vbt_tpu_torch.io.synthetic import write_voc
-    from vbt_tpu_torch.runtime.checkpoint import (
-        load_checkpoint,
-        load_params,
-        load_train_checkpoint,
-        save_train_checkpoint,
-    )
-    from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
-    from vbt_tpu_torch.tools import ckpt_soup, ckpt_sweep, int8_delta
+    from vbt_tpu_torch.runtime.checkpoint import load_train_checkpoint, save_train_checkpoint
+    from vbt_tpu_torch.tools import _reference, ckpt_sweep
     from vbt_tpu_torch.train.evaluate import EVAL_BATCH
 
     t_phase = time.perf_counter()
     sort_launches = _sort_hold(xla, kernels)
 
-    # (b) The tools on a VOC directory and phase 13's run.
+    # (b) The tools on phase 13's run and a VOC tree laid out as the
+    # reference's data under the working directory, read by their default.
     arch = "efficientdet_lite0"
     work = os.path.join(REPO, "out", "chip_smoke_tools")
     shutil.rmtree(work, ignore_errors=True)
-    voc, ckpt = os.path.join(work, "voc"), os.path.join(work, "ckpt")
+    voc, ckpt = os.path.join(work, _reference.DATA_DIR), os.path.join(work, "ckpt")
     sizes = ((240, 320), (360, 480), (288, 512), (480, 640), (720, 1280))
     for part, part_sizes, n in (("train", sizes[:4], 2), ("test", sizes, 3)):
         os.makedirs(os.path.join(voc, part))
@@ -2416,11 +2421,33 @@ def _selection_phase(frames, xla, kernels) -> tuple[dict, int]:
     state, _ = trainer.train_step(state, _check_batches()["cuda"])
     save_train_checkpoint(ckpt, 2, state)
 
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        launches = _selection_tools(arch, ckpt, work, per_eval, frames, kernels)
+    finally:
+        os.chdir(cwd)
+    print(f"phase 15 (checkpoint selection, host SORT) "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, sort_launches
+
+
+def _selection_tools(arch, ckpt, work, per_eval, frames, kernels) -> dict:
+    """Phase 15 (b) from the directory ``work`` that holds the reference
+    tree: each tool with no ``data_dir``. Returns K1's launches by tool."""
+    import io
+
+    import torch
+    from vbt_tpu_torch.runtime.checkpoint import (load_checkpoint, load_params,
+                                                  load_train_checkpoint)
+    from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
+    from vbt_tpu_torch.tools import ckpt_soup, ckpt_sweep, int8_delta
+
     launches = {}
     out = io.StringIO()
     _, launches["sweep"] = _count_nms(kernels, "ckpt_sweep, 2 checkpoints x raw/ema",
                                       4 * per_eval, lambda: ckpt_sweep.sweep(
-                                          arch, ckpt, voc, device="cuda", out=out))
+                                          arch, ckpt, device="cuda", out=out))
     print(out.getvalue(), end="")
     log = os.path.join(work, "sweep.txt")
     with open(log, "w") as f:
@@ -2429,7 +2456,7 @@ def _selection_phase(frames, xla, kernels) -> tuple[dict, int]:
     out = io.StringIO()
     (final, members, _), launches["soup"] = _count_nms(
         kernels, "ckpt_soup --top_k 3", 3 * per_eval, lambda: ckpt_soup.soup(
-            arch, ckpt, log, top_k=3, data_dir=voc, out=soup_path, device="cuda", stream=out))
+            arch, ckpt, log, top_k=3, out=soup_path, device="cuda", stream=out))
     print(out.getvalue(), end="")
     cpu_trainer, cpu_template = ckpt_sweep.selection_trainer(arch, "cpu")
     total = None
@@ -2453,24 +2480,21 @@ def _selection_phase(frames, xla, kernels) -> tuple[dict, int]:
     out = io.StringIO()
     (final, members, _), launches["soup_seed"] = _count_nms(
         kernels, "ckpt_soup --seed_msgpack lite0 --top_k 3", 4 * per_eval,
-        lambda: ckpt_soup.soup(arch, ckpt, log, top_k=3, data_dir=voc, seed_msgpack=CKPT,
-                               device="cuda", stream=out))
+        lambda: ckpt_soup.soup(arch, ckpt, log, top_k=3, seed_msgpack=CKPT, device="cuda",
+                               stream=out))
     print(out.getvalue(), end="")
     _hold_soup_decisions(out.getvalue(), members, final, load_params(CKPT, final))
 
     out, err = io.StringIO(), io.StringIO()
     (code, m_float, m_int8), launches["int8_delta"] = _count_nms(
         kernels, "int8_delta --calib_n 8", 2 * per_eval, lambda: int8_delta.int8_delta(
-            CKPT, voc, calib_n=8, device="cuda", out=out, err=err))
+            CKPT, calib_n=8, device="cuda", out=out, err=err))
     print(out.getvalue() + err.getvalue(), end="")
     delta75 = m_int8["AP75"] - m_float["AP75"]
     if code != int(delta75 < -0.01) or not m_float["AP50"] > 0.9:
         raise AssertionError(f"int8_delta: exit code {code} for AP75 delta {delta75}, "
                              f"float {m_float}")
-
-    print(f"phase 15 (checkpoint selection, host SORT) "
-          f"{time.perf_counter() - t_phase:.1f} s")
-    return launches, sort_launches
+    return launches
 
 
 def _analysis_engines_phase(xla) -> None:
@@ -2521,6 +2545,9 @@ BENCH_LANES = {"plain": [], "int8": ["--int8"], "turbo": ["--turbo"],
                "approx": ["--approx_prefilter"]}
 BENCH_TIMEOUT_S = 300  # a lane: the probe's child and the measurement's
 TOOL_BATCHES = ["64", "128"]
+# Phase 17: the checks' second run reads a reference test set of this many
+# write_voc JPEGs at each (height, width).
+CHECK_JPEGS, CHECK_JPEGS_EACH = ((240, 320), (480, 640)), 16
 # Phase 18: one card as this many devices, beside every card; turns of the timing.
 DP_SHARES = (2, 4)
 # Phase 19: the slow lane of the JAX package's e2e check, and its track bench.
@@ -2540,11 +2567,15 @@ DP_TURNS = 2
 def _bench_phase(kernels) -> tuple[dict, dict, dict, dict]:
     """Phase 17 (see the module docstring). Returns K1's and K2's launches
     by bench lane (one in-process detect at the bench's batch) and by tool."""
+    import functools
+    import tempfile
+
     import torch
     from vbt_tpu_torch import bench
+    from vbt_tpu_torch.io.synthetic import write_voc
     from vbt_tpu_torch.ops import _build
-    from vbt_tpu_torch.tools import (int8_profile, perf_probe, prefilter_check, roofline,
-                                     turbo_check)
+    from vbt_tpu_torch.tools import (_reference, int8_profile, perf_probe, prefilter_check,
+                                     roofline, turbo_check)
 
     t_phase = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=REPO, VBT_TORCH_BUILD_DIR=str(_build.BUILD_DIR))
@@ -2595,19 +2626,35 @@ def _bench_phase(kernels) -> tuple[dict, dict, dict, dict]:
     if proc.returncode != 0 or "entry ok" not in proc.stdout or "dryrun ok" not in proc.stdout:
         raise AssertionError(f"entry: {proc.stderr[-4000:]}")
 
-    # The tools in this process; phase 14 probed the card.
+    # The tools in this process; phase 14 probed the card. The checks run
+    # twice: from a directory without the reference tree (the synthetic
+    # plates, and the speed half) and from one holding its test set of
+    # CHECK_JPEGS (the numerics alone).
     tool_k1, tool_k2 = {}, {}
-    with mock.patch.dict(os.environ, {"VBT_TORCH_HEALTH_PROBE": "0"}):
+    with tempfile.TemporaryDirectory() as root, \
+            mock.patch.dict(os.environ, {"VBT_TORCH_HEALTH_PROBE": "0"}):
+        empty, tree = os.path.join(root, "empty"), os.path.join(root, "tree")
+        test_dir = os.path.join(tree, _reference.TEST_DIR)
+        os.makedirs(empty)
+        os.makedirs(test_dir)
+        write_voc(test_dir, CHECK_JPEGS, n=CHECK_JPEGS_EACH)
+        n_jpegs = len(CHECK_JPEGS) * CHECK_JPEGS_EACH
+        checks = {"turbo_check": turbo_check, "prefilter_check": prefilter_check}
         tools = {
             "roofline": lambda: roofline.main(
                 ["--out", os.path.join(REPO, "out", "chip_smoke_roofline.json")]),
-            "turbo_check": lambda: turbo_check.main(["--batches", *TOOL_BATCHES]),
-            "prefilter_check": lambda: prefilter_check.main(["--batches", *TOOL_BATCHES]),
+            **{name: functools.partial(_run_check, tool, empty, speed=True)
+               for name, tool in checks.items()},
+            **{f"{name}_jpeg": functools.partial(_run_check, tool, tree, speed=False)
+               for name, tool in checks.items()},
             "int8_profile": lambda: int8_profile.main(
                 ["--batches", *TOOL_BATCHES, "--out",
                  os.path.join(REPO, "out", "chip_smoke_int8_profile.json")]),
             "perf_probe": lambda: perf_probe.main(["--batches", *TOOL_BATCHES]),
         }
+        want_images = {**{name: f"images: {turbo_check.N_IMAGES} (synthetic)" for name in checks},
+                       **{f"{name}_jpeg": f"images: {n_jpegs} ({_reference.TEST_DIR})"
+                          for name in checks}}
         for name, run in tools.items():
             for k in kernels.values():
                 k.launches = 0
@@ -2617,14 +2664,89 @@ def _bench_phase(kernels) -> tuple[dict, dict, dict, dict]:
                                             kernels["fused_mbconv"].launches)
             print(f"tools.{name} ({time.perf_counter() - t0:.1f} s): NMS {tool_k1[name]} "
                   f"launches, fused MBConv {tool_k2[name]}; {_nvidia_smi()}")
-            if name.endswith("_check") and out != 0:
-                raise AssertionError(f"tools.{name} exited {out}")
+            if name in want_images:
+                code, printed = out
+                verdict = [json.loads(line[len("JSON: "):])["numerics_ok"] for line in printed
+                           if line.startswith("JSON: ")]
+                # turbo_check's bf16 budget on the JPEGs is a finding either
+                # way (PERF.md §6): its exit code must be its verdict.
+                if code != 0 and not (name == "turbo_check_jpeg" and code == 1
+                                      and verdict == [False]):
+                    raise AssertionError(f"tools.{name} exited {code}")
+                if not any(line.startswith(want_images[name]) for line in printed):
+                    raise AssertionError(f"tools.{name}: no line {want_images[name]!r}")
             if tool_k1[name] == 0 and name != "int8_profile":
                 raise AssertionError(f"tools.{name} launched no NMS")
-        if tool_k2["turbo_check"] == 0:
+        if tool_k2["turbo_check"] == 0 or tool_k2["turbo_check_jpeg"] == 0:
             raise AssertionError("tools.turbo_check launched no fused MBConv")
+        _turbo_jpeg_lanes(tree)
     print(f"phase 17 {time.perf_counter() - t_phase:.1f} s")
     return bench_k1, bench_k2, tool_k1, tool_k2
+
+
+def _turbo_jpeg_lanes(tree) -> None:
+    """Phase 17: the JPEGs of the reference tree under ``tree`` through
+    turbo_check's two backbones on the card in float32 (K2's float32
+    kernel), held to its budgets, then in the serving bf16 with every image
+    beyond them printed: each lane's confident rows, each with its largest
+    IoU with a higher-scored row of the image (K1 suppresses above 0.5)."""
+    import torch
+    from vbt_tpu_torch.tools import _reference, turbo_check
+
+    lanes = {label: turbo_check.pipelines("cuda", xla={"dtype": dtype},
+                                          turbo={"backbone": "turbo", "dtype": dtype})
+             for label, dtype in (("float32", torch.float32), ("bf16", None))}
+    names = sorted(f for f in os.listdir(os.path.join(tree, _reference.TEST_DIR))
+                   if f.endswith(".jpg"))
+    cwd = os.getcwd()
+    os.chdir(tree)
+    try:
+        images, _ = turbo_check.test_images(lanes["bf16"]["xla"].spec.input_size)
+    finally:
+        os.chdir(cwd)
+    for label, pipes in lanes.items():
+        det = turbo_check.detections(pipes, images)
+        r = turbo_check.compare(*det)
+        print(f"turbo_check's {len(images)} JPEGs, {label} on the card: count-equal "
+              f"{r['count_match']}/{r['images']}, confident max |score d| "
+              f"{r['score_delta']:.4g}, max |box d| {r['box_delta']:.4g}, unmatched "
+              f"{r['unmatched_confident']}; within the budgets: {r['numerics_ok']}")
+        if label == "float32" and not r["numerics_ok"]:
+            raise AssertionError("the turbo backbone in float32 leaves the budgets")
+        counts, boxes, scores = det
+        for i, name in enumerate(names):
+            if turbo_check.compare(*({k: v[i:i + 1] for k, v in d.items()}
+                                     for d in det))["numerics_ok"]:
+                continue
+            rows = []
+            for lane in ("xla", "turbo"):
+                s, b = (a[lane][i, :int(counts[lane][i])] for a in (scores, boxes))
+                rows.append(f"{lane} " + ", ".join(
+                    f"{s[j]:.4f} (IoU {turbo_check._iou_one_to_many(b[j], b[:j]).max():.4f})"
+                    if j else f"{s[j]:.4f}" for j in range(len(s)) if s[j] > turbo_check.CONFIDENT))
+            print(f"  {name} beyond the budgets, confident rows: {'; '.join(rows)}")
+
+
+def _run_check(tool, directory, speed: bool) -> tuple[int, list[str]]:
+    """Phase 17: ``tool.main`` (turbo_check or prefilter_check) at
+    ``TOOL_BATCHES`` from ``directory``, the speed half cut unless
+    ``speed``. Returns its exit code and the lines it printed (echoed)."""
+    import contextlib
+    import io
+
+    from vbt_tpu_torch.tools import turbo_check
+
+    cwd, buf = os.getcwd(), io.StringIO()
+    os.chdir(directory)
+    try:
+        cut = (contextlib.nullcontext() if speed
+               else mock.patch.object(turbo_check, "speed", lambda *a, **k: {}))
+        with contextlib.redirect_stdout(buf), cut:
+            code = tool.main(["--batches", *TOOL_BATCHES])
+    finally:
+        os.chdir(cwd)
+        print(buf.getvalue(), end="", flush=True)
+    return code, buf.getvalue().splitlines()
 
 
 def _dp_meshes() -> dict:

@@ -16,8 +16,9 @@ weights, 2 epochs of 2 steps at 64 px, float32) feed both packages' tools:
   byte for byte equal to JAX's (the float64 sums, the division and the
   float32 cast agree to the bit);
 - each tool's click options (names, defaults, choices) are JAX's, but
-  ``--data_dir``'s default: JAX's names a directory outside the
-  repository, the port's is ``vbt-torch-train``'s ``data``.
+  ``--data_dir``'s default: JAX's names the reference's ``data/`` by its
+  absolute path, outside the repository; the port's is the same directory
+  relative to the working directory, ``reference/data``.
 
 ``int8_delta`` calibrates the shipped lite0 on the first 2 sorted train
 JPGs of the same directory and evaluates it on its 8 test images at
@@ -257,8 +258,9 @@ def _options(command):
                                            (int8_delta, jax_int8.main)])
 def test_cli_options_match_jax(port, jax_main):
     got, want = _options(port.make_command()), _options(jax_main)
-    assert got.pop("data_dir")[0] == "data"
-    want.pop("data_dir")
+    port_root, jax_root = got.pop("data_dir")[0], want.pop("data_dir")[0]
+    assert port_root == "reference/data"
+    assert os.path.isabs(jax_root) and jax_root.endswith(os.sep + port_root)
     assert got == want
 
 

@@ -38,9 +38,13 @@ in each lane in-process at
 B = 16 (a valid line, ``0 < mfu <= 1``, K1 launched, K2 through "mma" in
 the turbo lane only) and the entry's dry run over the card twice. The
 end-to-end check on its stand-in scene: the card's rep count and track id
-equal the CPU port's, K1 and K3 launched once each.
+equal the CPU port's, K1 and K3 launched once each. ``turbo_check`` and
+``prefilter_check`` from a directory holding ``reference/data/test/``: every
+JPEG read, the exit code the tool's verdict under its own budgets
+(``prefilter_check``'s a pass).
 """
 
+import json
 import os
 
 import numpy as np
@@ -836,3 +840,36 @@ def test_e2e_check_on_the_card_matches_cpu(dev, tmp_path, monkeypatch):
         assert len(errors) == 1, errors
     assert got["cuda"][:2] == got["cpu"][:2] and got["cpu"][1] == 1
     assert got["cpu"][2:] == (0, 0) and got["cuda"][2:] == (1, 1)  # 30 frames: one batch
+
+
+@pytest.mark.parametrize("tool_name", ["turbo_check", "prefilter_check"])
+def test_checks_read_a_test_tree_on_the_card(dev, tool_name, tmp_path, monkeypatch, capsys):
+    """``tools.turbo_check`` and ``tools.prefilter_check`` from a directory
+    holding ``reference/data/test/`` (write_voc JPEGs at two sizes): every
+    image read and the source named; ``prefilter_check`` exits 0 (approx is
+    the exact top-K), ``turbo_check`` with its printed verdict (one of these
+    480x640 frames leaves its bf16 budget through the xla lane's NMS, a
+    finding of PERF.md); the speed half at B = 16 with its loops cut."""
+    pytest.importorskip("cv2")
+    import importlib
+
+    from vbt_tpu_torch.io.synthetic import write_voc
+    from vbt_tpu_torch.tools import _reference, turbo_check
+
+    tool = importlib.import_module(f"vbt_tpu_torch.tools.{tool_name}")
+    test_dir = tmp_path / _reference.TEST_DIR
+    test_dir.mkdir(parents=True)
+    write_voc(str(test_dir), ((240, 320), (480, 640)), n=4)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("VBT_TORCH_HEALTH_PROBE", "0")
+    for name, value in (("N_SHORT", 1), ("N_LONG", 3), ("TRIALS", 1)):
+        monkeypatch.setattr(turbo_check, name, value)
+    monkeypatch.setattr(tool, "TRIALS", 1)
+    code = tool.main(["--batches", "16"])
+    lines = capsys.readouterr().out.splitlines()
+    assert f"images: 8 ({_reference.TEST_DIR})" in "\n".join(lines)
+    if tool is turbo_check:
+        (record,) = [line for line in lines if line.startswith("JSON: ")]
+        assert code == (0 if json.loads(record[len("JSON: "):])["numerics_ok"] else 1)
+    else:
+        assert code == 0 and lines[-1] == "PASS"

@@ -1,9 +1,9 @@
 """Greedy checkpoint soup: average the best checkpoints of one training run.
 
 Port of the JAX package's ``tools/ckpt_soup.py`` with the same arguments,
-defaults (but ``--data_dir``'s, as in :mod:`.ckpt_sweep`) and printed
-lines. Late checkpoints of a long from-scratch
-schedule oscillate around one basin, and the average of their weights
+defaults (``--data_dir`` the reference data under the working directory,
+as in :mod:`.ckpt_sweep`) and printed lines. Late checkpoints of a long
+from-scratch schedule oscillate around one basin, and the average of their weights
 ("model soups", Wortsman et al. 2022) often beats each of them. The
 candidates are the lines of a :mod:`~vbt_tpu_torch.tools.ckpt_sweep` log
 from ``--min_step`` on, ranked by ``--metric`` (ties keep the log's order),

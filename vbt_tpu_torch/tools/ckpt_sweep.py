@@ -1,8 +1,10 @@
 """COCO AP of every saved training checkpoint of a run, raw and EMA.
 
 Port of the JAX package's ``tools/ckpt_sweep.py`` with the same arguments
-and printed lines; ``--data_dir`` defaults to ``vbt-torch-train``'s
-``data``. From-scratch schedules can peak before the last
+and printed lines; ``--data_dir`` defaults to the reference project's
+data, ``reference/data`` under the working directory
+(:data:`._reference.DATA_DIR`), where JAX's tool names the reference's
+data by its absolute location. From-scratch schedules can peak before the last
 epoch, so a checkpoint is chosen on evidence: every ``step_*.msgpack`` of
 ``CKPT_DIR`` (either package's train checkpoints) is loaded into a
 ``Trainer(spec, base_lr=0.01, total_steps=10, warmup_steps=1)`` state and
@@ -25,7 +27,7 @@ import sys
 
 import torch
 
-DEFAULT_DATA_DIR = "data"  # vbt-torch-train's default
+from vbt_tpu_torch.tools._reference import DATA_DIR as DEFAULT_DATA_DIR
 
 
 def checkpoint_steps(ckpt_dir: str) -> list[int]:

@@ -25,7 +25,9 @@ from __future__ import annotations
 
 import os
 
-PLOT_DF = "reference/dfs/001_squat_6reps_id1_efficientdet_lite0_whole.pkl.gz"
+from vbt_tpu_torch.tools._reference import DFS_DIR
+
+PLOT_DF = os.path.join(DFS_DIR, "001_squat_6reps_id1_efficientdet_lite0_whole.pkl.gz")
 
 
 def run(docs_dir: str) -> None:

@@ -28,8 +28,10 @@ from __future__ import annotations
 
 import os
 
+from vbt_tpu_torch.tools._reference import DFS_DIR
+
 OUR_CACHE = "dfs/eval_detections.pkl.gz"
-REF_CACHE = "reference/dfs/eval_detections.pkl.gz"
+REF_CACHE = os.path.join(DFS_DIR, "eval_detections.pkl.gz")
 SCORE_THRESHOLDS = [0.2, 0.5]
 
 

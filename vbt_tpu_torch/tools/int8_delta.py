@@ -2,8 +2,8 @@
 float lane.
 
 Port of the JAX package's ``tools/int8_delta.py`` with the same arguments,
-defaults (but ``--data_dir``'s, as in :mod:`.ckpt_sweep`), printed lines
-and exit codes. The int8 lane
+defaults (``--data_dir`` the reference data under the working directory,
+as in :mod:`.ckpt_sweep`), printed lines and exit codes. The int8 lane
 (``DetectionPipeline.calibrate``, post-training quantization of every dense
 convolution) stands in for the original project's int8 TFLite model, and a
 checkpoint ships only if its int8 AP75 stays within ``--budget`` of the

@@ -12,9 +12,9 @@ norm_plate_width in the track dataframe's convention), and
 :mod:`.e2e_acv_check` holds the whole pipeline's ROM/ACV against it.
 
 :data:`DATA` is the reference project's test set, relative to the working
-directory (the repository root). Where it is absent,
-:func:`vbt_tpu_torch.io.synthetic.write_demo_scene` writes a stand-in
-scene into such a directory.
+directory (the repository root; :data:`._reference.TEST_DIR`). Where it
+is absent, :func:`vbt_tpu_torch.io.synthetic.write_demo_scene` writes a
+stand-in scene into such a directory.
 
 Usage: ``python -m vbt_tpu_torch.tools.make_demo_video OUT.mp4 [--reps 4]
 [--fps 30] [--trajectory_out traj.csv]``
@@ -27,8 +27,7 @@ import os
 import numpy as np
 
 from vbt_tpu_torch.contract.parsers import read_voc_annotations
-
-DATA = "reference/data/test"
+from vbt_tpu_torch.tools._reference import TEST_DIR as DATA
 
 
 def synthesize(out, reps=4, fps=30.0, seconds=12.0, trajectory_out=None, image=None):

@@ -6,9 +6,10 @@ on the TPU and is the exact top-K elsewhere; the port serves ``"approx"``
 with the exact top-K (``ops/postprocess.py::approx_top_k``), so this tool
 holds the named branch to the exact one until a kernel takes its place:
 
-1. **Numerics**: the shipped lite0 checkpoint over synthetic plate images
-   (``turbo_check.plate_images``; the 61 reference test images JAX's tool
-   reads are not in the repository), ``prefilter="exact"`` against
+1. **Numerics**: the shipped lite0 checkpoint over the reference's test
+   images or, where ``reference/data/test`` holds none, synthetic plates
+   (``turbo_check.numerics_images``, as in :mod:`.turbo_check`; the
+   ``images:`` line names the source), ``prefilter="exact"`` against
    ``"approx"``, the device's serving dtype (bf16 and K1 on the card).
    JAX's matching and budgets (:func:`compare`): counts equal, the count
    of rows at or above ``TRACK_THRESHOLD`` (the score the tracker
@@ -91,8 +92,9 @@ def main(argv=None) -> int:
     pipes = turbo_check.pipelines(dev, exact={"prefilter": "exact"},
                                   approx={"prefilter": "approx"})
     size = pipes["exact"].spec.input_size
-    r = compare(*turbo_check.detections(pipes, turbo_check.plate_images(args.n_images, size)))
-    print(f"images: {r['images']}  count-equal: {r['count_match']}/{r['images']}  "
+    images, source = turbo_check.numerics_images(args.n_images, size)
+    r = compare(*turbo_check.detections(pipes, images))
+    print(f"images: {r['images']} ({source})  count-equal: {r['count_match']}/{r['images']}  "
           f"track-threshold rows equal: {r['track_rows_ok']}")
     print(f"confident rows: unmatched {r['unmatched_confident']}, "
           f"max |score d| {r['score_delta']:.2e}, max |box d| {r['box_delta']:.2e}")

@@ -2,15 +2,19 @@
 
 Port of the JAX package's ``tools/turbo_check.py``:
 
-1. **Numerics**: the shipped lite0 checkpoint over synthetic plate images
-   (:func:`plate_images`, from ``io/synthetic.py``: the 61 reference test
-   images JAX's tool reads are not in the repository), with the ``xla``
+1. **Numerics**: the shipped lite0 checkpoint over the reference's test
+   images (:func:`test_images`: every ``reference/data/test/*.jpg`` under
+   the working directory, read as JAX's tool reads the reference's test
+   set at its absolute location) or, where that directory holds none,
+   over ``--n_images`` synthetic plate images (:func:`plate_images`, from
+   ``io/synthetic.py``) after a line that says so, with the ``xla``
    backbone and the ``turbo`` one, in the device's serving dtype (bf16 and
    the kernels on the card). Rows are greedily IoU-matched in score order
    per image (:func:`compare`, JAX's loop): counts must be equal, every
    confident row (score > ``CONFIDENT``) must match at IoU >= 0.5 within
    ``BUDGET_BOX`` and ``BUDGET_SCORE``; the sub-threshold tail is reported,
-   not gated.
+   not gated. The ``images:`` line and the JSON record name the source
+   (the directory, or ``synthetic``).
 2. **Speed**: the marginal ms of the whole ``detect_batch`` (JAX's 4/12
    loops, 3 trials; :mod:`._timing`) at B = 64 and 128, xla against turbo.
 
@@ -22,16 +26,20 @@ Usage: ``python -m vbt_tpu_torch.tools.turbo_check [--n_images 32] [--batches 64
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
 
 import numpy as np
+
+from vbt_tpu_torch.tools._reference import TEST_DIR
 
 BUDGET_BOX = 1e-2  # normalized coordinates; one bf16 step is 2^-8 ~ 4e-3
 # bf16 reorders the convolutions' sums through ~40 backbone layers; a ~0.1
 # logit divergence maps to <= 5e-2 through the sigmoid.
 BUDGET_SCORE = 5e-2
 CONFIDENT = 0.3  # rows above this score must match 1:1 at IoU >= 0.5
-N_IMAGES = 32
+N_IMAGES = 32  # synthetic plates where TEST_DIR holds no image
 BATCHES = (64, 128)
 # The speed half's loops (JAX's tool: 4 and 12 calls, 3 trials).
 N_SHORT, N_LONG, TRIALS = 4, 12, 3
@@ -56,6 +64,33 @@ def plate_images(n: int, size: int) -> np.ndarray:
     per = -(-n // 4)
     return np.concatenate([plate_frames(per, size, size, seed=s, period=per)
                            for s in range(4)])[:n]
+
+
+def test_images(size: int) -> tuple[np.ndarray, int]:
+    """Every ``*.jpg`` of :data:`TEST_DIR` in sorted order, read as JAX's tool
+    reads them (``tools/turbo_check.py:107-111``: cv2, BGR to RGB, resized
+    to (size, size) with ``INTER_LINEAR``), stacked as uint8 RGB, and the
+    file count; ``(0, size, size, 3)`` and 0 when there is none."""
+    files = sorted(glob.glob(os.path.join(TEST_DIR, "*.jpg")))
+    if not files:
+        return np.zeros((0, size, size, 3), np.uint8), 0
+    import cv2
+
+    imgs = [cv2.resize(cv2.cvtColor(cv2.imread(f), cv2.COLOR_BGR2RGB), (size, size),
+                       interpolation=cv2.INTER_LINEAR) for f in files]
+    return np.stack(imgs), len(files)
+
+
+def numerics_images(n_images: int, size: int) -> tuple[np.ndarray, str]:
+    """The numerics' images and their source: :func:`test_images` of
+    :data:`TEST_DIR`, or, where it holds none, ``n_images`` synthetic
+    plates (:func:`plate_images`) after a line that says so."""
+    images, n = test_images(size)
+    if n:
+        return images, TEST_DIR
+    print(f"{TEST_DIR}: no *.jpg, the numerics run on {n_images} synthetic plate images",
+          flush=True)
+    return plate_images(n_images, size), "synthetic"
 
 
 def detections(pipes: dict, frames) -> tuple[dict, dict, dict]:
@@ -137,7 +172,8 @@ def pipelines(device, **by_name) -> dict:
 
 def parse(argv, doc: str) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=doc.split("\n\n")[0])
-    parser.add_argument("--n_images", type=int, default=N_IMAGES)
+    parser.add_argument("--n_images", type=int, default=N_IMAGES,
+                        help="synthetic plate images when the test directory holds none")
     parser.add_argument("--batches", type=int, nargs="+", default=list(BATCHES))
     parser.add_argument("--device", default="cuda")
     return parser.parse_args(argv)
@@ -150,7 +186,10 @@ def main(argv=None) -> int:
     dev = prepare_device(args.device, "turbo_check")
     pipes = pipelines(dev, xla={"backbone": "xla"}, turbo={"backbone": "turbo"})
     size = pipes["xla"].spec.input_size
-    report = compare(*detections(pipes, plate_images(args.n_images, size)))
+    images, source = numerics_images(args.n_images, size)
+    report = compare(*detections(pipes, images))
+    report["source"] = source
+    print(f"images: {report['images']} ({source})", flush=True)
     print(f"numerics: {report['count_match']}/{report['images']} images count-equal; "
           f"confident (> {CONFIDENT}) IoU-matched max|score delta| {report['score_delta']:.2e}, "
           f"max|box delta| {report['box_delta']:.2e} (budget {BUDGET_SCORE:.0e}/"
