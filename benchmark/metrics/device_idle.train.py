@@ -1,0 +1,2 @@
+"""Device idle share of the train cell's traced window (torch.profiler)."""
+from benchmark.core.readings import device_idle_pct as read  # noqa: F401

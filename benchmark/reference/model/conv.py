@@ -1,0 +1,94 @@
+"""Convolution and BatchNorm with the JAX package's numerics.
+
+:class:`Conv2dSame` is the counterpart of ``vbt_tpu.models.quant.QuantConv``:
+a 2-D convolution with XLA's SAME padding, NCHW activations and an OIHW
+weight. XLA's SAME padding is asymmetric for stride 2 (``pad_lo = total //
+2``, the extra pixel on the high side), which a symmetric
+``Conv2d(padding=...)`` cannot express, so those cases pad explicitly with
+``F.pad``. """
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+BN_EPS = 1e-3  # EfficientNet/flax BatchNorm epsilon used throughout
+BN_MOMENTUM = 0.99  # flax's convention: the weight of the old running value
+
+
+def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
+    """XLA SAME padding (lo, hi) along one axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: torch.Tensor, kernel: int, stride: int, value: float = 0.0) -> torch.Tensor:
+    """Pad an NCHW tensor so a VALID window op gives XLA SAME output."""
+    top, bottom = same_pads(x.shape[2], kernel, stride)
+    left, right = same_pads(x.shape[3], kernel, stride)
+    if top == bottom == left == right == 0:
+        return x
+    return F.pad(x, (left, right, top, bottom), value=value)
+
+
+def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
+                stride: int = 1, groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` with XLA SAME padding on NCHW ``x`` and an OIHW weight."""
+    kernel = weight.shape[-1]
+    if stride == 1 and kernel % 2 == 1:
+        # Symmetric SAME: let the conv pad (saves a copy of x).
+        return F.conv2d(x, weight, bias, 1, kernel // 2, 1, groups)
+    return F.conv2d(pad_same(x, kernel, stride), weight, bias, stride, 0, 1, groups)
+
+
+class Conv2dSame(nn.Module):
+    """Conv with XLA SAME padding; ``groups == in_ch`` gives a depthwise conv.
+    Parameters: ``weight`` (out, in // groups, k, k) and optional ``bias``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 groups: int = 1, bias: bool = False):
+        super().__init__()
+        self.kernel, self.stride, self.groups = kernel, stride, groups
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, kernel, kernel))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_same(x, self.weight, self.bias, self.stride, self.groups)
+
+
+class BatchNorm(nn.Module):
+    """BatchNorm on NCHW with flax's semantics, eps 1e-3, momentum 0.99.
+
+    In eval mode it normalizes with the running statistics. In train mode
+    it normalizes with the batch's: mean and variance over N, H, W in
+    float32 (float64 for float64 inputs), the variance flax's fast one (``mean(x^2) - mean(x)^2``,
+    clamped at 0) and biased; and it updates the running statistics in
+    place, ``r <- 0.99 r + 0.01 batch``, the variance biased too.
+    ``F.batch_norm(training=True)`` is not that: it stores the unbiased
+    variance and reads its momentum the other way round.
+
+    """
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels))
+        self.bias = nn.Parameter(torch.empty(channels))
+        self.register_buffer("running_mean", torch.empty(channels))
+        self.register_buffer("running_var", torch.empty(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=False, eps=BN_EPS)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean)
+            self.running_var.copy_(BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)

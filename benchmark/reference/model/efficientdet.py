@@ -1,0 +1,139 @@
+"""EfficientDet-Lite detector assembly and the model-spec registry.
+
+Port of ``vbt_tpu.models.efficientdet``. The forward pass takes NCHW images
+and returns flattened ``(deltas (B, N, 4), logits (B, N, C))`` in the JAX
+package's order: level-major, then row-major over the NHWC map, then the
+per-cell anchor fastest — the order of :func:`anchors.generate_anchors`. The
+NCHW head maps are permuted to NHWC before that reshape.
+
+``model.train()`` is ``EfficientDet.__call__(train=True, frozen=...)``: the
+subtrees named in ``frozen`` (heads-only training freezes ``("backbone",
+"fpn")``) stay in eval mode, normalizing with their running statistics,
+which do not move, and take no gradient. :func:`init_parameters` fills a
+model from a ``torch.Generator`` with flax's initializers.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from benchmark.reference.model.anchors import ANCHORS_PER_CELL, AnchorConfig
+from benchmark.reference.model.bifpn import BiFPN
+from benchmark.reference.model.conv import BatchNorm, Conv2dSame
+from benchmark.reference.model.efficientnet_lite import EfficientNetLite, tap_channels
+from benchmark.reference.model.heads import PredictionHead
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    name: str
+    backbone: str
+    input_size: int
+    fpn_channels: int
+    fpn_repeats: int
+    head_repeats: int
+    anchor_scale: float = 3.0
+    num_classes: int = 1  # one class: 'barbell'
+
+    @property
+    def anchor_config(self) -> AnchorConfig:
+        return AnchorConfig(input_size=self.input_size, anchor_scale=self.anchor_scale)
+
+
+MODEL_SPECS = {
+    "efficientdet_lite0": ModelSpec("efficientdet_lite0", "lite0", 320, 64, 3, 3),
+    "efficientdet_lite1": ModelSpec("efficientdet_lite1", "lite1", 384, 88, 4, 3),
+    "efficientdet_lite2": ModelSpec("efficientdet_lite2", "lite2", 448, 112, 5, 3),
+}
+# The "whole" variants share the architecture with their base (only the
+# fine-tuning regime differed), so model names round-trip through the CLIs.
+for _base in list(MODEL_SPECS.values()):
+    MODEL_SPECS[f"{_base.name}_whole"] = _base
+
+
+def get_model_spec(name: str) -> ModelSpec:
+    key = name if name in MODEL_SPECS else f"efficientdet_{name}"
+    if key not in MODEL_SPECS:
+        raise KeyError(f"unknown model spec '{name}'; have {sorted(MODEL_SPECS)}")
+    return MODEL_SPECS[key]
+
+
+def _flatten(maps: dict[int, torch.Tensor], per_anchor: int) -> torch.Tensor:
+    """Per-level NCHW maps -> (B, sum(H*W*A), per_anchor), NHWC order."""
+    parts = []
+    for lv in sorted(maps):
+        m = maps[lv].permute(0, 2, 3, 1)
+        b, h, w, _ = m.shape
+        parts.append(m.reshape(b, h * w * ANCHORS_PER_CELL, per_anchor))
+    return torch.cat(parts, dim=1)
+
+
+class EfficientDet(nn.Module):
+    """Backbone + BiFPN + heads; sub-module names follow the flax tree
+    ('backbone', 'fpn', 'box_net', 'class_net')."""
+
+    def __init__(self, spec: ModelSpec, frozen: tuple[str, ...] = ()):
+        super().__init__()
+        self.spec = spec
+        self.frozen = tuple(frozen)
+        self.backbone = EfficientNetLite(spec.backbone)
+        self.fpn = BiFPN(tap_channels(spec.backbone), spec.fpn_channels, spec.fpn_repeats)
+        self.box_net = PredictionHead(4, ANCHORS_PER_CELL, spec.fpn_channels,
+                                      spec.head_repeats)
+        self.class_net = PredictionHead(spec.num_classes, ANCHORS_PER_CELL,
+                                        spec.fpn_channels, spec.head_repeats)
+        for name in self.frozen:
+            getattr(self, name).requires_grad_(False)
+
+    def train(self, mode: bool = True) -> "EfficientDet":
+        super().train(mode)
+        for name in self.frozen:
+            getattr(self, name).eval()
+        return self
+
+    def forward(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``images`` (B, 3, S, S) normalized -> (deltas, logits)."""
+        return self.neck_and_heads(self.backbone(images))
+
+    def neck_and_heads(self, feats: dict[int, torch.Tensor]):
+        """BiFPN + heads on precomputed backbone taps {3, 4, 5}."""
+        feats = self.fpn(feats)
+        return (_flatten(self.box_net(feats), 4),
+                _flatten(self.class_net(feats), self.spec.num_classes))
+
+
+CLASS_PRIOR = 0.01  # the focal-loss prior of the class head's final bias
+# flax's truncated normal has stddev 1 before this correction (its
+# variance_scaling divides by the stddev of a unit normal cut at +-2).
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_parameters(model: EfficientDet, generator: torch.Generator) -> EfficientDet:
+    """Fill ``model`` in place with flax's initializers, drawn from
+    ``generator`` (a CPU generator; the model may live anywhere): every
+    convolution kernel ``lecun_normal`` (a normal cut at two standard
+    deviations, ``std = sqrt(1 / fan_in) / 0.8796``, fan_in = k * k *
+    in / groups), biases 0, BatchNorm scale 1 and bias 0 with running mean
+    0 and variance 1, and the class head's final bias ``-log((1 - p) / p)``
+    with p = 0.01. JAX's random stream is not reproduced."""
+    for module in model.modules():
+        if isinstance(module, Conv2dSame):
+            w = module.weight
+            std = math.sqrt(1.0 / (w.shape[1] * w.shape[2] * w.shape[3])) / _TRUNC_STD
+            sample = torch.empty(w.shape, dtype=w.dtype)
+            nn.init.trunc_normal_(sample, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            w.copy_(sample * std)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, BatchNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+            module.running_mean.zero_()
+            module.running_var.fill_(1.0)
+    model.class_net.final.pointwise.bias.fill_(-math.log((1 - CLASS_PRIOR) / CLASS_PRIOR))
+    return model
