@@ -176,7 +176,10 @@ def test_stream_cli_options_match_jax():
     def params(command):
         return {p.name: (p.opts, p.default, getattr(p, "is_flag", None)) for p in command.params}
 
-    assert params(port_stream.make_command()) == params(jax_stream.main)
+    got = params(port_stream.make_command())
+    # The port's one option beyond JAX's: the span report at the session's end.
+    assert got.pop("timing") == (["--timing"], False, True)
+    assert got == params(jax_stream.main)
 
 
 class _Replay:
@@ -210,4 +213,7 @@ def test_streaming_pipeline_follows_one_id_in_frame_order(follow_id):
     np.testing.assert_array_equal(samples[0], (t_idx + 1) / 30.0)
     np.testing.assert_array_equal(samples[2], (box[:, 1] + box[:, 3]) / 2)
     assert samples.shape[1] == 88  # every frame but the two misses
-    assert set(pipe.timer.counts) == {"detect", "track", "select", "analysis"}
+    assert pipe.timer.stage_names == {"detect", "track", "select", "analysis"}
+    # Beside the stages, the tracker's readbacks (the replayed detector and
+    # the stand-in analysis read nothing back).
+    assert set(pipe.timer.counts) == pipe.timer.stage_names | {"track.readback"}

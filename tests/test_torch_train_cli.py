@@ -196,7 +196,9 @@ def test_cli_flags_match_jax(port, jax_main):
     def names(c):
         return [(p.name, p.default, getattr(p, "is_flag", False)) for p in c.params]
 
-    assert names(command) == names(jax_main)
+    # The train CLI's one option beyond JAX's: the span report at the end.
+    extra = [("timing", False, True)] if port is cli else []
+    assert names(command) == names(jax_main) + extra
     out = CliRunner().invoke(command, ["--help"])
     assert out.exit_code == 0
     assert all(f"--{p.name}" in out.output for p in command.params if p.name != "train_whole_model")

@@ -38,14 +38,15 @@ def _fmt_rep(i: int, phase) -> str:
 
 def run_stream(src, model: str, detection_threshold: float, chunk_size: int,
                plate_diameter: float, follow_id: int, out=sys.stdout,
-               allow_random: bool = False, detector=None, device="cuda"):
+               allow_random: bool = False, detector=None, device="cuda", timing: bool = False):
     """Drive one streaming session; returns the final phase list.
 
     ``detector`` injects a prebuilt detection pipeline (tests use a
     deterministic pixel detector); by default the shipped weights named by
     ``model`` are served on ``device`` as ``vbt-torch-track`` serves them,
     after the card's health probe (random weights for a missing checkpoint
-    only with ``allow_random``)."""
+    only with ``allow_random``). ``timing`` prints the session's stages and
+    spans (:class:`~vbt_tpu_torch.utils.profiling.StageTimer`) at its end."""
     from vbt_tpu_torch.io.video import VideoReader
     from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
     from vbt_tpu_torch.runtime.streaming import StreamingPipeline
@@ -77,6 +78,8 @@ def run_stream(src, model: str, detection_threshold: float, chunk_size: int,
         live.update(pipe.phases(include_open=False))
     phases = pipe.phases()
     live.summary(phases)
+    if timing:
+        print(pipe.timer.report(), file=out, flush=True)
     return phases
 
 
@@ -131,12 +134,15 @@ def make_command():
                   help="Weight-plate diameter in meters (plot.py:54).")
     @click.option("--follow_id", default=1, show_default=True,
                   help="Track id to analyze (OC-SORT's stable identity is 1).")
-    def command(src, model, detection_treshold, chunk_size, plate_diameter, follow_id):
+    @click.option("--timing", is_flag=True,
+                  help="Print per-stage and per-span wall-clock accounting at the end.")
+    def command(src, model, detection_treshold, chunk_size, plate_diameter, follow_id, timing):
         """Stream SRC (a video file path, or a camera index like '0') through
         detect -> track -> phase analysis, printing per-rep ROM / ACV live."""
         if src.isdigit():  # a camera index, as cv2.VideoCapture takes it
             src = int(src)
-        run_stream(src, model, detection_treshold, chunk_size, plate_diameter, follow_id)
+        run_stream(src, model, detection_treshold, chunk_size, plate_diameter, follow_id,
+                   timing=timing)
 
     return command
 

@@ -48,7 +48,7 @@ from vbt_tpu_torch.contract.schema import build_df_filename, build_track_df, max
 from vbt_tpu_torch.io.video import VideoReader, VideoWriter, draw_bar_path, draw_bounding_box
 from vbt_tpu_torch.tracking import OCSort
 from vbt_tpu_torch.tracking.scan import ScanTrackerConfig, track_video
-from vbt_tpu_torch.utils.profiling import StageTimer, trace
+from vbt_tpu_torch.utils.profiling import StageTimer, span, trace
 
 MAX_AGE = 30
 COLORS = [(115, 3, 252), (255, 255, 255)]
@@ -83,6 +83,9 @@ def collect_detections(detector, src: str, threshold: float, batch_size: int = 6
     decoded straight into the pipeline's pinned staging buffers. Up to 8
     batches are queued on the device before the oldest is read back, so
     decoding overlaps device work while resident inputs stay bounded.
+    Spans (into the caller's open stage): ``decode`` a batch from the
+    reader, ``drain`` a batch read back into tracker rows, and the
+    pipeline's own ``detect.*`` spans.
     """
     reader = VideoReader(src, batch_size=batch_size, lend=detector.lend_frames)
     max_in_flight = 8
@@ -90,12 +93,19 @@ def collect_detections(detector, src: str, threshold: float, batch_size: int = 6
     all_rows, all_valid = [], []
 
     def _drain_one():
-        det, keep = pending.pop(0)
-        rows, valid = detector.detections_to_tracker_inputs(det, threshold)
-        all_rows.append(rows[:keep])
-        all_valid.append(valid[:keep])
+        with span("drain"):
+            det, keep = pending.pop(0)
+            rows, valid = detector.detections_to_tracker_inputs(det, threshold)
+            all_rows.append(rows[:keep])
+            all_valid.append(valid[:keep])
 
-    for frames, frame_valid, _ in reader:
+    batches = iter(reader)
+    while True:
+        with span("decode"):
+            batch = next(batches, None)
+        if batch is None:
+            break
+        frames, frame_valid, _ = batch
         pending.append((detector.detect_batch(frames), int(frame_valid.sum())))
         if len(pending) > max_in_flight:
             _drain_one()

@@ -46,6 +46,7 @@ from vbt_tpu_torch.train.data import load_voc_dataset
 from vbt_tpu_torch.train.evaluate import evaluate_model
 from vbt_tpu_torch.train.fused import DeviceDataTrainer
 from vbt_tpu_torch.train.train_step import Trainer
+from vbt_tpu_torch.utils.profiling import process_timer
 
 REPO_MODELS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "models")
@@ -165,10 +166,12 @@ def train_model(
 
 def run(data_dir, export_dir, architecture, epochs, batch_size, train_whole_model, lr, seed,
         max_steps, checkpoint_dir, checkpoint_every, resume, mosaic_p, init_from,
-        device="cuda") -> dict:
+        device="cuda", timing: bool = False) -> dict:
     """The body of the CLI, callable without click: train, evaluate raw
     and EMA parameters on ``data_dir/test``, export the better one and
-    write the log. Returns the evaluation results by tag."""
+    write the log. Returns the evaluation results by tag. ``timing``
+    prints the process-wide spans at the end (the train step's
+    ``train.*``, the evaluation's ``detect.*``)."""
     from vbt_tpu_torch.utils.cache import enable_persistent_cache
     from vbt_tpu_torch.utils.health import require_healthy_device
 
@@ -204,6 +207,8 @@ def run(data_dir, export_dir, architecture, epochs, batch_size, train_whole_mode
 
     with open(os.path.join(export_dir, f"{name}.log"), "w") as f:
         f.write("\n".join(log_lines) + "\n")
+    if timing:
+        print(process_timer().report())
     return results
 
 
@@ -235,11 +240,15 @@ def make_command():
     @click.option("--init_from", default=None,
                   help="Warm-start params/batch_stats from an exported .msgpack "
                        "(fresh optimizer; unlike --resume).")
+    @click.option("--timing", is_flag=True,
+                  help="Print the train step's per-span wall-clock accounting at the end.")
     def command(data_dir, export_dir, architecture, epochs, batch_size, train_whole_model, lr,
-                seed, max_steps, checkpoint_dir, checkpoint_every, resume, mosaic_p, init_from):
+                seed, max_steps, checkpoint_dir, checkpoint_every, resume, mosaic_p, init_from,
+                timing):
         """Train a barbell detector and export it with COCO-style evaluation."""
         run(data_dir, export_dir, architecture, epochs, batch_size, train_whole_model, lr, seed,
-            max_steps, checkpoint_dir, checkpoint_every, resume, mosaic_p, init_from)
+            max_steps, checkpoint_dir, checkpoint_every, resume, mosaic_p, init_from,
+            timing=timing)
 
     return command
 

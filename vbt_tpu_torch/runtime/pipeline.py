@@ -64,6 +64,7 @@ from vbt_tpu_torch.ops.preprocess import preprocess_frames
 from vbt_tpu_torch.runtime.checkpoint import load_checkpoint, load_into
 from vbt_tpu_torch.runtime.upload import StagingRing
 from vbt_tpu_torch.utils.device import resolve_device, serving_dtype
+from vbt_tpu_torch.utils.profiling import span, to_host
 
 MAX_DETECTIONS = 25  # the TFLite postprocess contract
 BACKBONES = ("xla", "turbo")  # the JAX package's names: module convolutions, fused blocks
@@ -186,17 +187,20 @@ class DetectionPipeline:
             x = frames.numpy() if isinstance(frames, torch.Tensor) else np.asarray(frames)
         if x.dtype not in (torch.uint8, np.uint8) or x.ndim != 4 or x.shape[-1] != 3:
             raise ValueError(f"want uint8 (B, H, W, 3) frames, got {x.dtype} {tuple(x.shape)}")
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device)
-        return self.staging(x.shape).upload(x)
+        with span("detect.upload"):
+            if isinstance(x, torch.Tensor):
+                return x.to(self.device)
+            return self.staging(x.shape).upload(x)
 
     # -- inference ------------------------------------------------------------
 
     @torch.inference_mode()
     def forward(self, frames) -> tuple[torch.Tensor, torch.Tensor]:
         """uint8 (B, H, W, 3) -> head outputs (deltas, logits) in ``dtype``."""
-        images = preprocess_frames(self._frames(frames), self.spec.input_size, self.dtype)
-        return self.run_model(images)
+        x = self._frames(frames)
+        with span("detect.forward"):
+            images = preprocess_frames(x, self.spec.input_size, self.dtype)
+            return self.run_model(images)
 
     def run_model(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """Normalized NCHW images -> (deltas, logits), through the chosen backbone."""
@@ -225,9 +229,10 @@ class DetectionPipeline:
     def postprocess(self, deltas: torch.Tensor, logits: torch.Tensor,
                     score_threshold: float = 0.0) -> Detections:
         fn = detection_postprocess_cuda if self.use_kernel else detection_postprocess
-        return fn(deltas, logits, self.anchors, input_size=self.spec.input_size,
-                  max_detections=MAX_DETECTIONS, score_threshold=score_threshold,
-                  prefilter=self.prefilter)
+        with span("detect.postprocess"):
+            return fn(deltas, logits, self.anchors, input_size=self.spec.input_size,
+                      max_detections=MAX_DETECTIONS, score_threshold=score_threshold,
+                      prefilter=self.prefilter)
 
     def detect_batch(self, frames, score_threshold: float = 0.0) -> Detections:
         """uint8 RGB (B, H, W, 3) -> Detections on the pipeline's device."""
@@ -239,9 +244,9 @@ class DetectionPipeline:
         """Detections -> (B, D, 6) float64 tracker rows [x1, y1, x2, y2,
         score, class] (normalized) and the (B, D) valid mask
         ``slot < count and score >= threshold``."""
-        boxes = det.boxes.cpu().numpy().astype(np.float64)  # (B, D, 4) y1x1y2x2
-        scores = det.scores.cpu().numpy().astype(np.float64)
-        counts = det.count.cpu().numpy()
+        boxes = to_host(det.boxes, "detect").astype(np.float64)  # (B, D, 4) y1x1y2x2
+        scores = to_host(det.scores, "detect").astype(np.float64)
+        counts = to_host(det.count, "detect")
         b, d, _ = boxes.shape
         rows = np.zeros((b, d, 6), np.float64)
         rows[..., 0] = boxes[..., 1]

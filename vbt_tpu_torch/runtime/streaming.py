@@ -50,7 +50,7 @@ from vbt_tpu_torch.tracking.scan import (
     scan_clips,
 )
 from vbt_tpu_torch.utils.device import resolve_device
-from vbt_tpu_torch.utils.profiling import StageTimer
+from vbt_tpu_torch.utils.profiling import StageTimer, to_host
 
 __all__ = ["track_chunk", "velocity_chunk", "analysis_chunk", "analysis_chunk_plain",
            "StreamingAnalyzer", "StreamingPipeline"]
@@ -142,7 +142,8 @@ class StreamingAnalyzer:
     (time, x, y, dy, norm_plate_height, norm_plate_width); ``phases()`` at
     any point equals the offline analysis of everything pushed so far. The
     carries live on ``device`` (K4 on the card); reading which samples
-    ended a phase costs one sync a chunk."""
+    ended a phase costs one sync a chunk. Every read of the card is a
+    ``to_host`` (the spans ``analysis.readback`` and ``phases.readback``)."""
 
     plate_diameter: float = 0.45
     diff_threshold: float = 0.6
@@ -167,9 +168,9 @@ class StreamingAnalyzer:
         cols = torch.from_numpy(host).to(device=self.device, dtype=self.dtype)
         self._smoother, self._carry, events = analysis_chunk(
             self._pd, self._smoother, self._carry, tuple(cols))
-        fired = events.fired.cpu().numpy()
+        fired = to_host(events.fired, "analysis")
         if fired.any():
-            rows = {k: v.cpu().numpy() for k, v in events._asdict().items()}
+            rows = {k: to_host(v, "analysis") for k, v in events._asdict().items()}
             for i in np.nonzero(fired)[0]:
                 self._events.append({k: rows[k][i] for k in rows})
 
@@ -179,15 +180,15 @@ class StreamingAnalyzer:
         False so that only completed phases print)."""
         carry, flush = flush_event(self._carry)
         records = list(self._events)
-        flush_host = {k: v.cpu().numpy() for k, v in flush._asdict().items()}
+        flush_host = {k: to_host(v, "phases") for k, v in flush._asdict().items()}
         if include_open and bool(flush_host["fired"]):
             records.append(flush_host)
         if not records:
             return []
         events = EventRecord(**{k: torch.from_numpy(np.stack([r[k] for r in records]))
                                 for k in records[0]})
-        pa = finalize_events(events, carry.max_y_diff.cpu(), self.diff_threshold,
-                             self.min_distance)
+        final_max = torch.from_numpy(to_host(carry.max_y_diff, "phases"))
+        pa = finalize_events(events, final_max, self.diff_threshold, self.min_distance)
         return to_phase_list(pa)
 
 
@@ -206,11 +207,16 @@ class StreamingPipeline:
     CPU the plain versions, the tracker in ``tracker_dtype`` (float64 by
     default, as the JAX package asks).
 
-    ``timer`` adds each chunk's host-clock spans: ``detect`` (the batch and
+    ``timer`` adds each chunk's host-clock stages: ``detect`` (the batch and
     the readback of its detections), ``track`` (K3 and the readback of its
     outputs), ``select`` (the followed id's rows, numpy), ``analysis`` (K4
     and the readback of which samples ended a phase) and ``phases``. Each
-    ends in a readback, so each holds its device work."""
+    ends in a readback, so each holds its device work. The spans below them
+    record into it too: ``detect.upload``, ``detect.forward``,
+    ``detect.postprocess``, and ``<stage>.readback`` for each tensor read
+    (:func:`~vbt_tpu_torch.utils.profiling.to_host`): 3 a chunk in
+    ``detect``, 4 in ``track``, 1 in ``analysis`` (10 where a phase ended)
+    and 10 a ``phases()`` (9 while there is no phase to list)."""
 
     detector: object
     fps: float
@@ -245,10 +251,10 @@ class StreamingPipeline:
                 self.tracker_cfg, self._tracker_state,
                 torch.as_tensor(rows, dtype=self.tracker_dtype, device=dev),
                 torch.as_tensor(valid, device=dev))
-            report = out.report.cpu().numpy()
-            boxes = out.box.cpu().numpy()
-            ids = out.track_id.cpu().numpy()
-            dy = out.dxdy[..., 1].cpu().numpy()
+            report = to_host(out.report, "track")
+            boxes = to_host(out.box, "track")
+            ids = to_host(out.track_id, "track")
+            dy = to_host(out.dxdy[..., 1], "track")
         with self.timer.stage("select"):
             # The followed id's rows in frame order, then slot order; centers
             # and sizes in the boxes' dtype, as the offline dataframe has them.

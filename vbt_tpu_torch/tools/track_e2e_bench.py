@@ -74,7 +74,8 @@ def run(seconds=60.0, fps=30.0, reps=20, batch_size=128,
         total_s = time.perf_counter() - t0
 
     name, limit_w = _timing.card(dev)
-    stages = {stage: round(s, 4) for stage, s in timer.totals.items()}
+    stages = {stage: round(s, 4) for stage, s in timer.totals.items()
+              if stage in timer.stage_names}
     dd = stages.get("decode+detect", float("nan"))
     record = {
         "video": {"seconds": seconds, "fps": fps, "frames": n_frames,

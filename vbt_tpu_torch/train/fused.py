@@ -8,6 +8,12 @@ crosses from the host a step; the augmentation draws come from a
 ``torch.Generator`` on the device, which :meth:`DeviceDataTrainer.epoch`
 hands back as JAX hands back its key. Metrics stay on the device until the
 caller reads them, once an epoch.
+
+Each step records the host-clock spans ``train.step`` and, inside it,
+``train.augment`` here and ``train.targets``, ``train.forward``,
+``train.backward`` and ``train.update`` in :meth:`Trainer.train_step`
+(:mod:`vbt_tpu_torch.utils.profiling`: into the caller's open stage, else
+the process-wide timer).
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from vbt_tpu_torch.ops.preprocess import MEAN_RGB, STDDEV_RGB
 from vbt_tpu_torch.train.augment import augment_mosaic_and_normalize, draw_mosaic
 from vbt_tpu_torch.train.data import DetectionDataset
 from vbt_tpu_torch.train.train_step import Trainer, TrainState
+from vbt_tpu_torch.utils.profiling import span
 
 
 class DeviceDataTrainer:
@@ -41,16 +48,19 @@ class DeviceDataTrainer:
 
     def augment(self, idx: torch.Tensor, generator: torch.Generator, mosaic_p: float) -> dict:
         """The augmented batch of the train images ``idx`` (on the device)."""
-        images, boxes, valid = (a[idx] for a in self._train)
-        draws = draw_mosaic(generator, idx.shape[0], images.shape[1], self.jitter[0],
-                            self.jitter[1], mosaic_p)
-        images, boxes, valid = augment_mosaic_and_normalize(images, boxes, valid, draws)
-        return {"images": images, "gt_boxes": boxes, "gt_valid": valid}
+        with span("train.augment"):
+            images, boxes, valid = (a[idx] for a in self._train)
+            draws = draw_mosaic(generator, idx.shape[0], images.shape[1], self.jitter[0],
+                                self.jitter[1], mosaic_p)
+            images, boxes, valid = augment_mosaic_and_normalize(images, boxes, valid, draws)
+            return {"images": images, "gt_boxes": boxes, "gt_valid": valid}
 
     def step(self, state: TrainState, idx: torch.Tensor, generator: torch.Generator,
              mosaic_p: float):
-        """One fused step: gather, augment, targets, forward, backward, update."""
-        return self.trainer.train_step(state, self.augment(idx, generator, mosaic_p))
+        """One fused step: gather, augment, targets, forward, backward, update
+        (the span ``train.step``, the stages' spans inside it)."""
+        with span("train.step"):
+            return self.trainer.train_step(state, self.augment(idx, generator, mosaic_p))
 
     def epoch(self, state: TrainState, rng: np.random.Generator, batch_size: int,
               generator: torch.Generator, max_batches: int | None = None,

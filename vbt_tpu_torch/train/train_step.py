@@ -54,6 +54,7 @@ from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
 from vbt_tpu_torch.train.losses import detection_loss
 from vbt_tpu_torch.train.targets import assign_targets
 from vbt_tpu_torch.utils.device import resolve_device
+from vbt_tpu_torch.utils.profiling import span
 
 MAX_GRAD_NORM = 10.0
 MOMENTUM = 0.9
@@ -252,27 +253,35 @@ class Trainer:
     def train_step(self, state: TrainState, batch: dict):
         """batch: images (B, 3, S, S) float32 normalized, gt_boxes (B, G, 4)
         pixels, gt_valid (B, G) bool, on the trainer's device. Returns (new
-        state, metrics); the metrics stay on the device, but ``lr``, a float."""
-        box_t, cls_t, pos, ign = assign_targets(self.anchors, batch["gt_boxes"],
-                                                batch["gt_valid"], self.spec.num_classes)
+        state, metrics); the metrics stay on the device, but ``lr``, a float.
+        Host-clock spans: ``train.targets``, ``train.forward`` (with the
+        loss), ``train.backward`` (with the zero fill of frozen leaves) and
+        ``train.update`` (SGD, then the EMA)."""
+        with span("train.targets"):
+            box_t, cls_t, pos, ign = assign_targets(self.anchors, batch["gt_boxes"],
+                                                    batch["gt_valid"], self.spec.num_classes)
         trainable = set(self.trainable)
         params = {k: v.detach().requires_grad_(k in trainable) for k, v in state.params.items()}
         # The model updates its running statistics in place: give it copies,
         # but for the frozen subtrees, which run on theirs and leave them.
         stats = {k: (v if self.is_frozen(k) else v.clone()) for k, v in state.batch_stats.items()}
         self.model.train()
-        deltas, logits = self._forward(params, stats, batch["images"].to(self.dtype))
-        total, metrics = detection_loss(deltas, logits, box_t, cls_t, pos, ign)
-        grads = dict(zip(self.trainable,
-                         torch.autograd.grad(total, [params[k] for k in self.trainable])))
-        grads = {k: grads[k] if k in grads else torch.zeros_like(v)
-                 for k, v in state.params.items()}
-        updates, opt_state = self.tx.update(grads, state.opt_state, state.params)
-        new_params = apply_updates(state.params, updates)
-        decay, keep = ema_decay_at(state.step, self.ema_decay)
-        keys = list(new_params)
-        ema = torch._foreach_add(torch._foreach_mul([state.ema_params[k] for k in keys], decay),
-                                 torch._foreach_mul([new_params[k] for k in keys], keep))
+        with span("train.forward"):
+            deltas, logits = self._forward(params, stats, batch["images"].to(self.dtype))
+            total, metrics = detection_loss(deltas, logits, box_t, cls_t, pos, ign)
+        with span("train.backward"):
+            grads = dict(zip(self.trainable,
+                             torch.autograd.grad(total, [params[k] for k in self.trainable])))
+            grads = {k: grads[k] if k in grads else torch.zeros_like(v)
+                     for k, v in state.params.items()}
+        with span("train.update"):
+            updates, opt_state = self.tx.update(grads, state.opt_state, state.params)
+            new_params = apply_updates(state.params, updates)
+            decay, keep = ema_decay_at(state.step, self.ema_decay)
+            keys = list(new_params)
+            ema = torch._foreach_add(
+                torch._foreach_mul([state.ema_params[k] for k in keys], decay),
+                torch._foreach_mul([new_params[k] for k in keys], keep))
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["lr"] = self.schedule(state.step)
         return TrainState(state.step + 1, new_params, stats, opt_state,

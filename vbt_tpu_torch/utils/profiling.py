@@ -2,21 +2,42 @@
 
 - :class:`StageTimer`, wall-clock stage accounting for host orchestration
   (decode, detect, tracker, dataframe);
+- :func:`span`, a named host-clock span inside a stage, and :func:`to_host`,
+  a device-to-host read timed as the span ``<layer>.readback``;
 - :func:`trace`, a ``torch.profiler`` trace of the CPU and the card written
   as a TensorBoard-loadable file, the counterpart of ``jax.profiler``'s.
+
+A span records into the innermost :class:`StageTimer` whose stage is open
+around it on the calling thread (a ``contextvars`` variable), so a caller's
+timer collects the spans of the code below it without the timer being
+passed down; where no stage is open it records into the process-wide timer
+(:func:`process_timer`). While a ``torch.profiler`` records, a stage or a
+span also opens ``record_function(name)``, so it stands on the trace's own
+clock; otherwise it costs two clock reads and a few dict and contextvar
+operations. No span synchronizes the card, allocates on it or launches
+anything.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from dataclasses import dataclass, field
+
+from torch._C._autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
+# Durations kept a name (the last calls), so that a reader can take a
+# window's own calls and memory stays flat in a long run.
+RECENT_CALLS = 4096
 
 
 @dataclass
 class StageTimer:
-    """Accumulates wall-clock time per named stage.
+    """Accumulates wall-clock time per named stage, and the spans recorded
+    inside its open stages.
 
     >>> timer = StageTimer()
     >>> with timer.stage("detect"):
@@ -26,15 +47,25 @@ class StageTimer:
 
     totals: dict = field(default_factory=lambda: defaultdict(float))
     counts: dict = field(default_factory=lambda: defaultdict(int))
+    recent: dict = field(default_factory=lambda: defaultdict(
+        lambda: deque(maxlen=RECENT_CALLS)))
+    stage_names: set = field(default_factory=set)  # the names opened as stages
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+    def stage(self, name: str) -> "_Span":
+        """Time ``name`` into this timer; spans opened inside record here."""
+        self.stage_names.add(name)
+        return _Span(name, self)
+
+    def add(self, name: str, seconds: float) -> None:
+        self.totals[name] += seconds
+        self.counts[name] += 1
+        self.recent[name].append(seconds)
+
+    def last(self, name: str, n: int) -> list[float]:
+        """The durations of the last ``n`` calls of ``name`` (fewer where
+        fewer are kept), oldest first."""
+        calls = self.recent.get(name, ())
+        return list(calls)[-n:] if n > 0 else []
 
     def report(self) -> str:
         lines = []
@@ -43,6 +74,62 @@ class StageTimer:
             n = self.counts[name]
             lines.append(f"{name}: {total:.3f}s total, {n} calls, {total / n * 1e3:.1f} ms/call")
         return "\n".join(lines)
+
+
+_PROCESS = StageTimer()
+_CURRENT: contextvars.ContextVar[StageTimer | None] = contextvars.ContextVar(
+    "vbt_torch_stage_timer", default=None)
+
+
+def process_timer() -> StageTimer:
+    """The timer of the spans recorded where no stage is open."""
+    return _PROCESS
+
+
+class _Span:
+    """A stage of ``timer`` (made the current timer while it is open), or,
+    with no timer, a span of the current one."""
+
+    __slots__ = ("name", "timer", "stage", "token", "annotation", "t0")
+
+    def __init__(self, name: str, timer: StageTimer | None = None):
+        self.name = name
+        self.timer = timer
+        self.stage = timer is not None
+
+    def __enter__(self):
+        if self.stage:
+            self.token = _CURRENT.set(self.timer)
+        else:
+            self.timer = _CURRENT.get() or _PROCESS
+        self.annotation = None
+        if _profiler_enabled():
+            self.annotation = record_function(self.name)
+            self.annotation.__enter__()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.timer.add(self.name, time.perf_counter() - self.t0)
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        if self.stage:
+            _CURRENT.reset(self.token)
+        return False
+
+
+def span(name: str) -> _Span:
+    """``with span(name): ...`` times the block into the innermost open
+    stage's timer, else into :func:`process_timer`."""
+    return _Span(name)
+
+
+def to_host(tensor, layer: str):
+    """``tensor`` as a host numpy array, the wait for the card and the copy
+    timed as the span ``<layer>.readback``; its call count is the layer's
+    count of readbacks."""
+    with span(f"{layer}.readback"):
+        return tensor.cpu().numpy()
 
 
 @contextlib.contextmanager
