@@ -216,7 +216,17 @@ class StreamingPipeline:
     ``detect.postprocess``, and ``<stage>.readback`` for each tensor read
     (:func:`~vbt_tpu_torch.utils.profiling.to_host`): 3 a chunk in
     ``detect``, 4 in ``track``, 1 in ``analysis`` (10 where a phase ended)
-    and 10 a ``phases()`` (9 while there is no phase to list)."""
+    and 10 a ``phases()`` (9 while there is no phase to list).
+
+    On the card, every chunk of one shape from a pipeline's third on (the
+    first ran eagerly, the second captured; a padded last chunk has the
+    same shape) is detected by replaying the pipeline's CUDA graph of its
+    detect chain (:meth:`DetectionPipeline.detect_batch
+    <vbt_tpu_torch.runtime.pipeline.DetectionPipeline.detect_batch>`):
+    ``detect.forward`` then times the copy into the graph's input and the
+    replay, ``detect.replay`` the replay alone, ``detect.postprocess`` the
+    copy of the detections out of the graph, each once a chunk. A chunk's
+    detections are tensors of its own, which no later chunk overwrites."""
 
     detector: object
     fps: float
