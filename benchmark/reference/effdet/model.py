@@ -1,0 +1,216 @@
+"""EfficientDet-D's forward in plain float32 torch, for the benchmark.
+
+A frozen copy of the model part of the repo's test reference
+(``tests/plain/effdet.py``), written from the published description
+(arXiv:1911.09070; google/automl ``efficientdet/hparams_config.py``,
+``efficientdet_arch.py``, ``efficientnet/efficientnet_builder.py``) and not
+from the program: the B-series backbone with squeeze-excite and swish, the
+BiFPN with fast normalized fusion, the heads. The weights are one flat
+dict under the names a checkpoint's leaves take once read
+(:func:`benchmark.reference.effdet.step.load_checkpoint`). Departures from
+automl, where the program's D family shares a design with its lite family:
+one lateral 1x1 convolution and BatchNorm a level (automl: one an edge of
+the first cell); no drop-connect; flax's BatchNorm (``(x - mean) *
+(rsqrt(var + eps) * scale) + bias``, the fast biased batch variance, running
+statistics ``r <- 0.99 r + 0.01 batch``). The fast fusion is the paper's
+``sum_i (w_i / (eps + sum_j w_j)) x_i``.
+"""
+
+from __future__ import annotations
+
+import math
+import re
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
+FUSION_EPS = 1e-4
+LEVELS = (3, 4, 5, 6, 7)
+# efficientnet_builder.py's B0 table: repeats, kernel, strides, expansion,
+# input and output filters, squeeze-excite ratio.
+BLOCK_STRINGS = (
+    "r1_k3_s11_e1_i32_o16_se0.25", "r2_k3_s22_e6_i16_o24_se0.25",
+    "r2_k5_s22_e6_i24_o40_se0.25", "r3_k3_s22_e6_i40_o80_se0.25",
+    "r3_k5_s11_e6_i80_o112_se0.25", "r4_k5_s22_e6_i112_o192_se0.25",
+    "r1_k3_s11_e6_i192_o320_se0.25",
+)
+TAP_GROUPS = {3: 2, 4: 4, 5: 6}  # level -> the block group whose last output it is
+
+
+@dataclass(frozen=True)
+class DSpec:
+    width: float
+    depth: float
+    input_size: int
+    fpn_channels: int
+    fpn_repeats: int
+    head_repeats: int
+    anchor_scale: float = 4.0
+    num_classes: int = 1
+
+
+D_SPECS = {"efficientdet_d3": DSpec(1.2, 1.4, 896, 160, 6, 4)}
+
+
+def round_filters(filters: int, width: float) -> int:
+    """automl's ``round_filters`` with divisor 8."""
+    filters *= width
+    new = max(8, int(filters + 4) // 8 * 8)
+    return int(new + 8) if new < 0.9 * filters else int(new)
+
+
+def blocks(spec: DSpec) -> list[dict]:
+    """Every MBConv block in order: its name, group, kernel, stride,
+    expansion, input, output and squeeze-excite channels."""
+    out = []
+    for g, text in enumerate(BLOCK_STRINGS):
+        f = dict(re.fullmatch(r"([a-z]+)([\d.]+)", p).groups() for p in text.split("_"))
+        reps = int(math.ceil(spec.depth * int(f["r"])))
+        cin, cout = round_filters(int(f["i"]), spec.width), round_filters(int(f["o"]), spec.width)
+        for r in range(reps):
+            out.append({"name": f"g{g}_b{r}", "group": g, "kernel": int(f["k"]),
+                        "stride": int(f["s"][0]) if r == 0 else 1, "expand": int(f["e"]),
+                        "cin": cin if r == 0 else cout, "cout": cout,
+                        "se": max(1, int((cin if r == 0 else cout) * float(f["se"])))})
+    return out
+
+
+def tap_channels(spec: DSpec) -> dict[int, int]:
+    last = {b["group"]: b["cout"] for b in blocks(spec)}
+    return {lv: last[g] for lv, g in TAP_GROUPS.items()}
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def same_pad(x: torch.Tensor, k: int, s: int, value: float = 0.0) -> torch.Tensor:
+    """TF's SAME padding: the output is ceil(n / s), the odd pixel low-side
+    short."""
+    pads = []
+    for n in (x.shape[3], x.shape[2]):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads, value=value)
+
+
+class Net:
+    """One forward over the weights ``w`` (parameters and running
+    statistics); in train mode each BatchNorm normalizes with the batch's
+    statistics and the moved running statistics land in ``stats``."""
+
+    def __init__(self, spec: DSpec, w: dict, train: bool):
+        self.spec, self.w, self.train, self.stats = spec, w, train, {}
+
+    def conv(self, name: str, x, stride: int = 1, groups: int = 1):
+        weight = self.w[f"{name}.weight"]
+        k = weight.shape[-1]
+        return F.conv2d(same_pad(x, k, stride), weight, self.w.get(f"{name}.bias"), stride,
+                        groups=groups)
+
+    def bn(self, name: str, x):
+        if self.train:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+            for key, batch in (("running_mean", mean), ("running_var", var)):
+                old = self.w[f"{name}.{key}"]
+                self.stats[f"{name}.{key}"] = BN_MOMENTUM * old + (1 - BN_MOMENTUM) * batch.detach()
+        else:
+            mean, var = self.w[f"{name}.running_mean"], self.w[f"{name}.running_var"]
+        c = lambda t: t[None, :, None, None]  # noqa: E731
+        mul = torch.rsqrt(var + BN_EPS) * self.w[f"{name}.weight"]
+        return (x - c(mean)) * c(mul) + c(self.w[f"{name}.bias"])
+
+    def sep_conv(self, name: str, x):
+        return self.conv(f"{name}.pointwise", self.conv(f"{name}.depthwise", x,
+                                                        groups=x.shape[1]))
+
+    # -- backbone: EfficientNet-B -------------------------------------------------
+    def mbconv(self, p: str, b: dict, x):
+        inputs = x
+        if b["expand"] != 1:
+            x = swish(self.bn(f"{p}.expand_bn.bn", self.conv(f"{p}.expand", x)))
+        x = swish(self.bn(f"{p}.depthwise_bn.bn", self.conv(f"{p}.depthwise", x, b["stride"],
+                                                             groups=x.shape[1])))
+        s = x.mean(dim=(2, 3), keepdim=True)
+        s = self.conv(f"{p}.se.expand", swish(self.conv(f"{p}.se.reduce", s)))
+        x = x * torch.sigmoid(s)
+        x = self.bn(f"{p}.project_bn.bn", self.conv(f"{p}.project", x))
+        if b["stride"] == 1 and b["cin"] == b["cout"]:
+            x = x + inputs
+        return x
+
+    def backbone(self, images):
+        x = swish(self.bn("backbone.stem_bn.bn", self.conv("backbone.stem", images, 2)))
+        feats, bl = {}, blocks(self.spec)
+        for i, b in enumerate(bl):
+            x = self.mbconv(f"backbone.{b['name']}", b, x)
+            if i + 1 == len(bl) or bl[i + 1]["group"] != b["group"]:
+                for lv, g in TAP_GROUPS.items():
+                    if g == b["group"]:
+                        feats[lv] = x
+        return feats
+
+    # -- BiFPN --------------------------------------------------------------------
+    def lateral(self, name: str, x):
+        if x.shape[1] == self.spec.fpn_channels:
+            return x
+        return self.bn(f"{name}.bn", self.conv(f"{name}.Conv_0", x))
+
+    @staticmethod
+    def down(x):
+        return F.max_pool2d(same_pad(x, 3, 2, float("-inf")), 3, 2)
+
+    @staticmethod
+    def up(x, like):
+        return F.interpolate(x, size=like.shape[2:], mode="nearest")
+
+    def node(self, name: str, inputs: list):
+        w = F.relu(self.w[f"{name}.edge_weight"])
+        w = w / (w.sum() + FUSION_EPS)
+        x = sum(inputs[i] * w[i] for i in range(len(inputs)))
+        x = self.sep_conv(f"{name}.conv", swish(x))
+        return self.bn(f"{name}.conv.bn", x)
+
+    def fpn(self, c: dict):
+        p = {lv: self.lateral(f"fpn.lateral_p{lv}", c[lv]) for lv in (3, 4, 5)}
+        p[6] = self.down(self.lateral("fpn.lateral_p6", c[5]))
+        p[7] = self.down(p[6])
+        for r in range(self.spec.fpn_repeats):
+            cell, td = f"fpn.cell{r}", {7: p[7]}
+            for lv in (6, 5, 4, 3):
+                td[lv] = self.node(f"{cell}.td_p{lv}", [p[lv], self.up(td[lv + 1], p[lv])])
+            out = {3: td[3]}
+            for lv in (4, 5, 6, 7):
+                ins = [p[lv], self.down(out[lv - 1])] if lv == 7 else [
+                    p[lv], td[lv], self.down(out[lv - 1])]
+                out[lv] = self.node(f"{cell}.bu_p{lv}", ins)
+            p = out
+        return p
+
+    # -- heads --------------------------------------------------------------------
+    def head(self, name: str, feats: dict, per_anchor: int):
+        parts = []
+        for lv in LEVELS:
+            x = feats[lv]
+            for i in range(self.spec.head_repeats):
+                x = swish(self.bn(f"{name}.bn{i}_p{lv}", self.sep_conv(f"{name}.conv{i}", x)))
+            x = self.sep_conv(f"{name}.final", x).permute(0, 2, 3, 1)
+            parts.append(x.reshape(x.shape[0], -1, per_anchor))
+        return torch.cat(parts, dim=1)
+
+    def __call__(self, images):
+        feats = self.fpn(self.backbone(images))
+        return self.head("box_net", feats, 4), self.head("class_net", feats,
+                                                         self.spec.num_classes)
+
+
+def forward(spec: DSpec, w: dict, images: torch.Tensor, train: bool = False):
+    """``images`` (B, 3, S, S) normalized -> (deltas (B, N, 4), logits (B,
+    N, C), the moved running statistics (train mode; else empty))."""
+    net = Net(spec, w, train)
+    deltas, logits = net(images)
+    return deltas, logits, net.stats

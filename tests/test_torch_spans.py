@@ -12,6 +12,8 @@
   3 + 4 + 1 + 10 = 18 times in a chunk in which no phase ended, once one
   has (9 more in one where one did; the phase list reads 9 tensors, not
   10, while there is no phase yet); each train span once a step;
+- the model's ``model.backbone`` and ``model.fpn`` record once a forward,
+  inside ``detect.forward`` (the CPU's eager chain) and ``train.forward``;
 - each per-layer reader of these spans (``benchmark/metrics``) returns a
   number from a run built of these sessions, and the nested spans sum to
   no more than their stage.
@@ -45,12 +47,12 @@ CKPT = os.path.join(REPO, "models", "efficientdet_lite0_whole.msgpack")
 CHUNK, FRAMES = 4, 24
 STREAM_SPANS = ("detect", "track", "select", "analysis", "detect.upload", "detect.forward",
                 "detect.postprocess", "detect.readback", "track.readback",
-                "analysis.readback", "phases.readback")
+                "analysis.readback", "phases.readback", "model.backbone", "model.fpn")
 # Readbacks a stage makes each chunk (analysis: 10 where a phase ended;
 # phases: 9 until the first phase has ended, 10 from then on).
 READBACKS = {"detect.readback": 3, "track.readback": 4}
 TRAIN_SPANS = ("train.step", "train.augment", "train.targets", "train.forward",
-               "train.backward", "train.update")
+               "train.backward", "train.update", "model.backbone", "model.fpn")
 TRAIN_STEPS = 2
 
 
@@ -310,3 +312,26 @@ def test_the_train_readers_read_the_window_steps(train_runs):
     # More steps than the timer kept: nothing to read.
     run.cell.counters["steps"] = profiling.RECENT_CALLS + 1
     assert registry.metric_reader("update_ms.train")(run) is None
+
+
+def test_the_model_spans_nest_inside_the_forward_spans(stream_runs, train_runs):
+    plain, _ = stream_runs
+    timer = plain.timer
+    assert timer.counts["model.backbone"] == timer.counts["model.fpn"] == len(plain.per_chunk)
+    assert timer.totals["model.backbone"] + timer.totals["model.fpn"] <= timer.totals[
+        "detect.forward"]
+    traced, _ = train_runs
+    outer = traced.outer
+    assert outer.counts["model.backbone"] == outer.counts["model.fpn"] == TRAIN_STEPS
+    both = [a + b for a, b in zip(outer.last("model.backbone", TRAIN_STEPS),
+                                  outer.last("model.fpn", TRAIN_STEPS))]
+    assert all(m <= f for m, f in zip(both, outer.last("train.forward", TRAIN_STEPS)))
+    # The readers take the process-wide timer's last steps (the plain run's).
+    run = SimpleNamespace(cell=SimpleNamespace(spans={}, counters={"steps": TRAIN_STEPS}),
+                          trace=None, config={}, window_s=1.0)
+    got = {m: registry.metric_reader(m)(run) for m in ("backbone_host_ms.train",
+                                                       "fpn_host_ms.train",
+                                                       "forward_host_ms.train")}
+    assert all(v is not None and v > 0 for v in got.values()), got
+    assert got["backbone_host_ms.train"] + got["fpn_host_ms.train"] <= got[
+        "forward_host_ms.train"]

@@ -4,8 +4,13 @@ Port of ``vbt_tpu.models.bifpn`` with plain-sum fusion (the lite default):
 each node sums its inputs, applies ReLU6, a depthwise-separable conv and
 BN. Upsampling is the JAX package's nearest index map; downsampling is a
 3x3/2 max pool with XLA SAME padding of ``-inf`` (5 -> 3 at P6 -> P7 pads
-(1, 1); other sizes pad on the high side only). ``fastattn`` fusion is a
-later slice.
+(1, 1); other sizes pad on the high side only).
+
+EfficientDet-D0..D5 fuse by automl's ``fastattn`` (:class:`FastFuseNode`):
+``sum_i relu(w_i) x_i / (sum_j relu(w_j) + 1e-4)``, one learnable weight an
+input (``edge_weight``, initialised to 1), and swish in place of ReLU6.
+Both are chosen when the module is built (``act``, ``fusion``); a
+``"sum"`` node runs the forward it always ran.
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from vbt_tpu_torch.models.conv import BatchNorm, Conv2dSame, pad_same
 MIN_LEVEL = 3
 MAX_LEVEL = 7
 LEVELS = tuple(range(MIN_LEVEL, MAX_LEVEL + 1))
+FUSIONS = ("sum", "fastattn")
+FUSION_EPS = 1e-4  # automl's epsilon of the fast normalized fusion
 
 
 def _upsample2x(x: torch.Tensor, target_hw: tuple[int, int]) -> torch.Tensor:
@@ -65,28 +72,55 @@ class ChannelResample(nn.Module):
 
 
 class FuseNode(nn.Module):
-    """Sum fusion of same-shape inputs, ReLU6, then ``SepConvBN``."""
+    """Sum fusion of same-shape inputs, the activation (ReLU6 unless ``act``
+    says otherwise), then ``SepConvBN``."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, act=F.relu6):
         super().__init__()
         self.conv = SepConvBN(channels, channels)
+        self.act = act
 
     def forward(self, inputs: list[torch.Tensor]) -> torch.Tensor:
         x = inputs[0]
         for t in inputs[1:]:
             x = x + t
-        return self.conv(F.relu6(x))
+        return self.conv(self.act(x))
+
+
+class FastFuseNode(FuseNode):
+    """automl's fast normalized fusion of ``n_inputs`` same-shape inputs:
+    ``sum_i relu(w_i) x_i / (sum_j relu(w_j) + 1e-4)``, then the activation
+    and ``SepConvBN``. The normalized weights are cast to the inputs' dtype
+    (they stay float32 in the state under a bf16 step)."""
+
+    def __init__(self, channels: int, n_inputs: int, act):
+        super().__init__(channels, act)
+        self.edge_weight = nn.Parameter(torch.ones(n_inputs))
+
+    def forward(self, inputs: list[torch.Tensor]) -> torch.Tensor:
+        w = F.relu(self.edge_weight)
+        w = (w / (w.sum() + FUSION_EPS)).to(inputs[0].dtype)
+        x = inputs[0] * w[0]
+        for i in range(1, len(inputs)):
+            x = x + inputs[i] * w[i]
+        return self.conv(self.act(x))
+
+
+def _node(channels: int, n_inputs: int, act, fusion: str) -> FuseNode:
+    return (FuseNode(channels, act) if fusion == "sum"
+            else FastFuseNode(channels, n_inputs, act))
 
 
 class BiFPNCell(nn.Module):
     """One top-down + bottom-up pass over levels 3..7."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, act=F.relu6, fusion: str = "sum"):
         super().__init__()
         for lv in LEVELS[:-1]:
-            self.add_module(f"td_p{lv}", FuseNode(channels))
+            self.add_module(f"td_p{lv}", _node(channels, 2, act, fusion))
         for lv in LEVELS[1:]:
-            self.add_module(f"bu_p{lv}", FuseNode(channels))
+            self.add_module(f"bu_p{lv}", _node(channels, 2 if lv == MAX_LEVEL else 3, act,
+                                               fusion))
 
     def forward(self, feats: dict[int, torch.Tensor]) -> dict[int, torch.Tensor]:
         td = {MAX_LEVEL: feats[MAX_LEVEL]}
@@ -103,16 +137,20 @@ class BiFPNCell(nn.Module):
 
 class BiFPN(nn.Module):
     """Lateral resampling of C3..C5, P6/P7 synthesis from C5, ``repeats``
-    cells."""
+    cells; ``act`` (a function) and ``fusion`` (one of :data:`FUSIONS`)
+    choose the nodes."""
 
-    def __init__(self, tap_channels: dict[int, int], channels: int, repeats: int):
+    def __init__(self, tap_channels: dict[int, int], channels: int, repeats: int,
+                 act=F.relu6, fusion: str = "sum"):
         super().__init__()
+        if fusion not in FUSIONS:
+            raise ValueError(f"fusion must be one of {FUSIONS}, got {fusion!r}")
         for lv in (3, 4, 5):
             self.add_module(f"lateral_p{lv}", ChannelResample(tap_channels[lv], channels))
         self.lateral_p6 = ChannelResample(tap_channels[5], channels)
         self.repeats = repeats
         for r in range(repeats):
-            self.add_module(f"cell{r}", BiFPNCell(channels))
+            self.add_module(f"cell{r}", BiFPNCell(channels, act, fusion))
 
     def forward(self, backbone_feats: dict[int, torch.Tensor]) -> dict[int, torch.Tensor]:
         feats = {lv: getattr(self, f"lateral_p{lv}")(backbone_feats[lv]) for lv in (3, 4, 5)}

@@ -20,6 +20,8 @@ from vbt_tpu_torch.models import quant as q
 
 BN_EPS = 1e-3  # EfficientNet/flax BatchNorm epsilon used throughout
 BN_MOMENTUM = 0.99  # flax's convention: the weight of the old running value
+#: automl's ``act_type`` names: ReLU6 (the lite family), swish (x * sigmoid(x)).
+ACTIVATIONS = {"relu6": F.relu6, "swish": F.silu}
 
 
 def same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:

@@ -1,4 +1,4 @@
-"""EfficientDet-Lite detector assembly and the model-spec registry.
+"""EfficientDet detector assembly and the model-spec registry.
 
 Port of ``vbt_tpu.models.efficientdet``. The forward pass takes NCHW images
 and returns flattened ``(deltas (B, N, 4), logits (B, N, C))`` in the JAX
@@ -11,6 +11,18 @@ subtrees named in ``frozen`` (heads-only training freezes ``("backbone",
 "fpn")``) stay in eval mode, normalizing with their running statistics,
 which do not move, and take no gradient. :func:`init_parameters` fills a
 model from a ``torch.Generator`` with flax's initializers.
+
+Two families share the assembly. The lite specs (``efficientdet_lite0..2``)
+take an EfficientNet-lite backbone, ReLU6 and plain-sum fusion. The D
+specs (``efficientdet_d3``, google/automl ``efficientdet/hparams_config.py``)
+take a B-series backbone with squeeze-excite, swish throughout and fast
+normalized fusion (``act`` and ``fusion`` of :class:`ModelSpec`; the
+backbone's family follows its name). automl's drop-connect (stochastic
+depth) in the backbone is not trained, as the lite training leaves it out.
+
+The forward records the host-clock spans ``model.backbone`` and
+``model.fpn`` (:func:`~vbt_tpu_torch.utils.profiling.span`; a replayed CUDA
+graph records neither).
 """
 
 from __future__ import annotations
@@ -22,10 +34,11 @@ import torch
 from torch import nn
 
 from vbt_tpu_torch.models.anchors import ANCHORS_PER_CELL, AnchorConfig
-from vbt_tpu_torch.models.bifpn import BiFPN
-from vbt_tpu_torch.models.conv import BatchNorm, Conv2dSame
+from vbt_tpu_torch.models.bifpn import BiFPN, FastFuseNode
+from vbt_tpu_torch.models.conv import ACTIVATIONS, BatchNorm, Conv2dSame
 from vbt_tpu_torch.models.efficientnet_lite import EfficientNetLite, tap_channels
 from vbt_tpu_torch.models.heads import PredictionHead
+from vbt_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -38,6 +51,8 @@ class ModelSpec:
     head_repeats: int
     anchor_scale: float = 3.0
     num_classes: int = 1  # one class: 'barbell'
+    act: str = "relu6"  # the BiFPN's and the heads' (automl act_type)
+    fusion: str = "sum"  # the BiFPN's (automl fpn_weight_method)
 
     @property
     def anchor_config(self) -> AnchorConfig:
@@ -48,6 +63,8 @@ MODEL_SPECS = {
     "efficientdet_lite0": ModelSpec("efficientdet_lite0", "lite0", 320, 64, 3, 3),
     "efficientdet_lite1": ModelSpec("efficientdet_lite1", "lite1", 384, 88, 4, 3),
     "efficientdet_lite2": ModelSpec("efficientdet_lite2", "lite2", 448, 112, 5, 3),
+    "efficientdet_d3": ModelSpec("efficientdet_d3", "b3", 896, 160, 6, 4, anchor_scale=4.0,
+                                 act="swish", fusion="fastattn"),
 }
 # The "whole" variants share the architecture with their base (only the
 # fine-tuning regime differed), so model names round-trip through the CLIs.
@@ -80,12 +97,14 @@ class EfficientDet(nn.Module):
         super().__init__()
         self.spec = spec
         self.frozen = tuple(frozen)
+        act = ACTIVATIONS[spec.act]
         self.backbone = EfficientNetLite(spec.backbone)
-        self.fpn = BiFPN(tap_channels(spec.backbone), spec.fpn_channels, spec.fpn_repeats)
+        self.fpn = BiFPN(tap_channels(spec.backbone), spec.fpn_channels, spec.fpn_repeats,
+                         act, spec.fusion)
         self.box_net = PredictionHead(4, ANCHORS_PER_CELL, spec.fpn_channels,
-                                      spec.head_repeats)
+                                      spec.head_repeats, act)
         self.class_net = PredictionHead(spec.num_classes, ANCHORS_PER_CELL,
-                                        spec.fpn_channels, spec.head_repeats)
+                                        spec.fpn_channels, spec.head_repeats, act)
         for name in self.frozen:
             getattr(self, name).requires_grad_(False)
 
@@ -97,11 +116,14 @@ class EfficientDet(nn.Module):
 
     def forward(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """``images`` (B, 3, S, S) normalized -> (deltas, logits)."""
-        return self.neck_and_heads(self.backbone(images))
+        with span("model.backbone"):
+            feats = self.backbone(images)
+        return self.neck_and_heads(feats)
 
     def neck_and_heads(self, feats: dict[int, torch.Tensor]):
         """BiFPN + heads on precomputed backbone taps {3, 4, 5}."""
-        feats = self.fpn(feats)
+        with span("model.fpn"):
+            feats = self.fpn(feats)
         return (_flatten(self.box_net(feats), 4),
                 _flatten(self.class_net(feats), self.spec.num_classes))
 
@@ -119,8 +141,9 @@ def init_parameters(model: EfficientDet, generator: torch.Generator) -> Efficien
     convolution kernel ``lecun_normal`` (a normal cut at two standard
     deviations, ``std = sqrt(1 / fan_in) / 0.8796``, fan_in = k * k *
     in / groups), biases 0, BatchNorm scale 1 and bias 0 with running mean
-    0 and variance 1, and the class head's final bias ``-log((1 - p) / p)``
-    with p = 0.01. JAX's random stream is not reproduced."""
+    0 and variance 1, the fusion weights 1 (automl's), and the class head's
+    final bias ``-log((1 - p) / p)`` with p = 0.01. JAX's random stream is
+    not reproduced."""
     for module in model.modules():
         if isinstance(module, Conv2dSame):
             w = module.weight
@@ -135,5 +158,7 @@ def init_parameters(model: EfficientDet, generator: torch.Generator) -> Efficien
             module.bias.zero_()
             module.running_mean.zero_()
             module.running_var.fill_(1.0)
+        elif isinstance(module, FastFuseNode):
+            module.edge_weight.fill_(1.0)
     model.class_net.final.pointwise.bias.fill_(-math.log((1 - CLASS_PRIOR) / CLASS_PRIOR))
     return model

@@ -2,8 +2,9 @@
 
 Port of ``vbt_tpu.models.heads``: ``repeats`` separable convs whose weights
 are shared across pyramid levels, each followed by a BatchNorm of its own
-per level (``bn{i}_p{lv}``) and ReLU6, then a shared final separable conv
-projecting to ``num_anchors * out_per_anchor`` channels.
+per level (``bn{i}_p{lv}``) and ReLU6 (swish in EfficientDet-D, chosen
+when the module is built), then a shared final separable conv projecting to
+``num_anchors * out_per_anchor`` channels.
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ class _SharedSepConv(nn.Module):
 class PredictionHead(nn.Module):
     """Head applied to every pyramid level; returns per-level NCHW maps."""
 
-    def __init__(self, out_per_anchor: int, num_anchors: int, channels: int, repeats: int):
+    def __init__(self, out_per_anchor: int, num_anchors: int, channels: int, repeats: int,
+                 act=F.relu6):
         super().__init__()
         self.repeats = repeats
+        self.act = act
         for i in range(repeats):
             self.add_module(f"conv{i}", _SharedSepConv(channels, channels))
             for lv in LEVELS:
@@ -46,6 +49,6 @@ class PredictionHead(nn.Module):
             x = feats[lv]
             for i in range(self.repeats):
                 x = getattr(self, f"conv{i}")(x)
-                x = F.relu6(getattr(self, f"bn{i}_p{lv}")(x))
+                x = self.act(getattr(self, f"bn{i}_p{lv}")(x))
             outputs[lv] = self.final(x)
         return outputs

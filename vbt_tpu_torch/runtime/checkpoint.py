@@ -11,9 +11,11 @@ for a numpy scalar, stored as a 0-d array).
 ``state_dict``: ``kernel`` -> ``weight`` (HWIO and depthwise ``(kh, kw, 1,
 C)`` both become OIHW by ``transpose(3, 2, 0, 1)``), BN ``scale`` ->
 ``weight``, ``mean``/``var`` -> ``running_mean``/``running_var``, and the
-flax auto-name ``BatchNorm_0`` -> ``bn``. A calibrated pipeline's ``quant``
-collection carries one ``act_scale`` leaf per dense conv; each becomes that
-conv's ``act_scale`` buffer (a float32 scalar).
+flax auto-name ``BatchNorm_0`` -> ``bn``; a fast-fusion node's weights
+(EfficientDet-D's BiFPN) keep their name, ``edge_weight``, in ``params``.
+A calibrated pipeline's ``quant`` collection carries one ``act_scale`` leaf
+per dense conv; each becomes that conv's ``act_scale`` buffer (a float32
+scalar).
 
 The writer is the inverse, so checkpoints stay loadable by both packages:
 :func:`msgpack_pack` encodes as ``msgpack.packb`` does (the smallest
@@ -138,6 +140,7 @@ _LEAF_NAMES = {
     ("params", "kernel"): "weight",
     ("params", "bias"): "bias",
     ("params", "scale"): "weight",
+    ("params", "edge_weight"): "edge_weight",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
     ("quant", "act_scale"): "act_scale",
@@ -276,8 +279,8 @@ def to_flax_variables(state_dict: dict, collections: tuple[str, ...] = ("params"
     variables of numpy arrays, the collections in the given order and the
     keys below them sorted. Raises on a key that
     maps to no flax leaf."""
-    inverse = {("params", "bias"): "bias", ("batch_stats", "running_mean"): "mean",
-               ("batch_stats", "running_var"): "var"}
+    inverse = {("params", "bias"): "bias", ("params", "edge_weight"): "edge_weight",
+               ("batch_stats", "running_mean"): "mean", ("batch_stats", "running_var"): "var"}
     trees: dict = {c: {} for c in collections}
     for key, tensor in state_dict.items():
         *mods, leaf = key.split(".")
@@ -287,7 +290,7 @@ def to_flax_variables(state_dict: dict, collections: tuple[str, ...] = ("params"
             if arr.ndim == 4:
                 arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         else:
-            collection = "params" if leaf == "bias" else "batch_stats"
+            collection = "params" if leaf in ("bias", "edge_weight") else "batch_stats"
             name = inverse.get((collection, leaf))
         if name is None or collection not in trees:
             raise KeyError(f"{key!r} maps to no flax leaf of {collections}")

@@ -75,6 +75,7 @@ from vbt_tpu_torch.models import EfficientDet, ModelSpec, get_model_spec
 from vbt_tpu_torch.models import quant as q
 from vbt_tpu_torch.models.anchors import generate_anchors
 from vbt_tpu_torch.models.efficientdet import init_parameters
+from vbt_tpu_torch.models.efficientnet_lite import is_lite
 from vbt_tpu_torch.models.turbo import TurboBackbone, turbo_forward
 from vbt_tpu_torch.ops.nms_cuda import detection_postprocess_cuda
 from vbt_tpu_torch.ops.postprocess import Detections, detection_postprocess
@@ -126,6 +127,10 @@ class DetectionPipeline:
             raise ValueError(f"backbone must be one of {BACKBONES}, got {backbone!r}")
         if quant not in QUANT:
             raise ValueError(f"quant must be one of {QUANT}, got {quant!r}")
+        if backbone == "turbo" and not is_lite(spec.backbone):
+            # The fused block has no squeeze-excite and applies ReLU6.
+            raise ValueError(f"backbone='turbo' runs the lite family only, not "
+                             f"{spec.backbone!r} ({spec.name})")
         if backbone != "xla" and quant != q.OFF:
             # The fused blocks have no int8 path: the pipeline would serve
             # float while it reports quant='int8' (the JAX package's refusal).

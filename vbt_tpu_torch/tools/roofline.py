@@ -165,18 +165,20 @@ def analytic_bytes(batch=BATCH, size=320):
 
 
 def analytic_flops(batch=BATCH, size=320, name="efficientdet_lite0"):
-    """Per-stage FLOPs (2 x MACs of every convolution) of the model ``name``
-    at ``size``, keyed by :data:`STAGES`; preprocess and postprocess have no
-    convolution and count 0."""
+    """Per-stage FLOPs (2 x MACs of every convolution, squeeze-excite's
+    included) of the model ``name`` at ``size``, keyed by :data:`STAGES`;
+    preprocess and postprocess have no convolution and count 0, nor do the
+    activations and the BiFPN's fusion."""
     from vbt_tpu_torch.models import get_model_spec
     from vbt_tpu_torch.models.anchors import ANCHORS_PER_CELL
-    from vbt_tpu_torch.models.efficientnet_lite import (STEM_CHANNELS, TAPS, scaled_blocks,
-                                                        tap_channels)
+    from vbt_tpu_torch.models.efficientnet_lite import (SE_RATIO, TAPS, is_lite, scaled_blocks,
+                                                        stem_channels, tap_channels)
 
     spec = get_model_spec(name)
     b = batch
-    backbone, hw = _conv_flops(size, 3, STEM_CHANNELS, 3, 2, b)
-    cin = STEM_CHANNELS
+    stem = stem_channels(spec.backbone)
+    backbone, hw = _conv_flops(size, 3, stem, 3, 2, b)
+    cin = stem
     lv_hw = {}
     for gi, g in enumerate(scaled_blocks(spec.backbone)):
         for ri in range(g.repeats):
@@ -186,6 +188,10 @@ def analytic_flops(batch=BATCH, size=320, name="efficientdet_lite0"):
                 backbone += _conv_flops(hw, cin, mid, 1, 1, b)[0]
             x, hw = _conv_flops(hw, mid, mid, g.kernel, stride, b, groups=mid)
             backbone += x + _conv_flops(hw, mid, g.out_ch, 1, 1, b)[0]
+            if not is_lite(spec.backbone):  # squeeze-excite's two 1x1 convs on 1x1 maps
+                se = max(1, int(cin * SE_RATIO))
+                backbone += (_conv_flops(1, mid, se, 1, 1, b)[0]
+                             + _conv_flops(1, se, mid, 1, 1, b)[0])
             cin = g.out_ch
         if gi in TAPS:
             lv_hw[TAPS[gi]] = hw
