@@ -16,6 +16,9 @@ A captured graph issues them all in one launch.
   counters (``nms.launches``, ``fused_mbconv.launches`` and
   ``fused_mbconv.launches_by_variant``, and the int8 lane's
   ``int8_matmul.calls``) as the eager chain's launches do.
+- :class:`StepGraph` is one captured graph of a step whose inputs are many
+  tensors and a few scalars: the device-resident train step's
+  (:mod:`vbt_tpu_torch.train.fused`).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from collections import OrderedDict
 from collections.abc import Callable, Hashable
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from vbt_tpu_torch.models.quant import int8_matmul
 from vbt_tpu_torch.ops.fused_mbconv import fused_mbconv
@@ -81,6 +85,21 @@ class CapturePolicy:
         return self.graphs[key]
 
 
+def run_on(stream: torch.cuda.Stream, fn: Callable[[], object]):
+    """``fn()`` run eagerly on ``stream``, after the work the current
+    stream has queued; its result, tensors in any nesting of tuples, lists
+    and dicts, is safe to use on the current stream."""
+    current = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        out = fn()
+    current.wait_stream(stream)
+    for t in tree_leaves(out):
+        if isinstance(t, torch.Tensor):
+            t.record_stream(current)
+    return out
+
+
 def _launch_counts() -> dict[str, int]:
     return {"nms": nms.launches, "fused_mbconv": fused_mbconv.launches,
             "int8_matmul": int8_matmul.calls,
@@ -115,17 +134,9 @@ class ChainGraph:
         self.launches = dict.fromkeys(_launch_counts(), 0)
 
     def warm_up(self, fn: Callable[[torch.Tensor], tuple]) -> tuple:
-        """``fn(input)`` run eagerly on the graph's stream, its launches
-        counted as any eager launch; the outputs are safe to use on the
-        current stream."""
-        current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            out = fn(self.input)
-        current.wait_stream(self.stream)
-        for t in out:
-            t.record_stream(current)
-        return out
+        """``fn(input)`` run eagerly on the graph's stream (:func:`run_on`),
+        its launches counted as any eager launch."""
+        return run_on(self.stream, lambda: fn(self.input))
 
     def capture(self, fn: Callable[[torch.Tensor], tuple]) -> None:
         """Record ``fn(input)`` into the graph. Nothing runs, so the launch
@@ -157,3 +168,104 @@ class ChainGraph:
         if self.graph is not None:
             self.graph.reset()
         self.graph = self.outputs = self.input = None
+
+
+def _dtype_groups(tensors: list) -> list[list[int]]:
+    """The positions of ``tensors``, a list for each dtype: a ``_foreach_``
+    call on a list of mixed dtypes leaves the fused kernels for a launch a
+    tensor."""
+    groups: dict = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault(t.dtype, []).append(i)
+    return list(groups.values())
+
+
+def _copy_into(dst: list, src: list, groups: list[list[int]]) -> None:
+    """``dst[i].copy_(src[i])`` for every ``i``, one ``_foreach_copy_`` a
+    group of :func:`_dtype_groups`."""
+    for g in groups:
+        torch._foreach_copy_([dst[i] for i in g], [src[i] for i in g])
+
+
+class StepGraph:
+    """One CUDA graph of a step whose inputs are many tensors and a few
+    scalars, captured on ``stream``.
+
+    ``StepGraph(inputs, scalars, dtype, generators, stream)`` copies the
+    tensors ``inputs`` into static ones and holds the numbers ``scalars``
+    as 0-dim tensors of ``dtype``, which the graph reads where an eager
+    step takes Python numbers; ``generators`` are registered with the
+    graph, so that a replay draws from their state and advances it as the
+    eager step does. :meth:`capture` records ``fn(inputs, scalars)``,
+    whose result may nest tuples, lists, dicts and named tuples; the step
+    must have run eagerly on ``stream`` before (:func:`run_on`), the
+    warm-up ``torch.cuda.graph`` asks for. Then each call copies its inputs
+    and scalars in (:meth:`load`), replays (:meth:`replay`) and takes the
+    result (:meth:`fresh_outputs`): its tensors copied out of the graph's
+    pool, which the next replay overwrites, and an output that is one of
+    the static inputs handed back as the caller's own input in its
+    place."""
+
+    def __init__(self, inputs: list, scalars: list, dtype: torch.dtype, generators,
+                 stream: torch.cuda.Stream):
+        self.device = inputs[0].device
+        self.inputs = [x.clone() for x in inputs]
+        self.input_groups = _dtype_groups(self.inputs)
+        self.scalars = [torch.tensor(v, dtype=dtype, device=self.device) for v in scalars]
+        self.generators = tuple(generators)
+        self.stream = stream
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.leaves = self.spec = self.aliases = self.outputs = self.output_groups = None
+
+    def capture(self, fn: Callable[[list, list], object]) -> None:
+        """Record ``fn(inputs, scalars)`` on the static tensors into the
+        graph. Nothing runs, and the generators do not advance;
+        ``torch.cuda.graph`` frees the cached blocks first, so that the
+        graph's private pool takes the eager steps' room."""
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        with torch.cuda.device(self.device), torch.cuda.graph(graph, stream=self.stream):
+            out = fn(self.inputs, self.scalars)
+        self.graph = graph
+        self.keep(out)
+
+    def keep(self, out) -> None:
+        """Note the captured result ``out``: its leaves, their nesting, and
+        which of its tensors are static inputs."""
+        self.leaves, self.spec = tree_flatten(out)
+        static = {id(x): i for i, x in enumerate(self.inputs)}
+        self.aliases = [static.get(id(t)) if isinstance(t, torch.Tensor) else None
+                        for t in self.leaves]
+        self.outputs = [t for t, a in zip(self.leaves, self.aliases)
+                        if isinstance(t, torch.Tensor) and a is None]
+        self.output_groups = _dtype_groups(self.outputs)
+
+    def load(self, inputs: list, scalars: list) -> None:
+        """Copy ``inputs`` into the static tensors and fill the scalars, on
+        the current stream: in stream order after every replay already
+        queued, which still read them before."""
+        _copy_into(self.inputs, inputs, self.input_groups)
+        for t, v in zip(self.scalars, scalars):
+            t.fill_(v)
+
+    def replay(self) -> None:
+        """Launch the graph on the current stream."""
+        self.graph.replay()
+
+    def fresh_outputs(self, inputs: list):
+        """The last replay's result, its tensors copies of their own (an
+        output that is a static input: ``inputs``' tensor in its place;
+        other leaves as captured)."""
+        copies = [torch.empty_like(t) for t in self.outputs]
+        _copy_into(copies, self.outputs, self.output_groups)
+        copies = iter(copies)
+        leaves = [inputs[a] if a is not None else next(copies) if isinstance(t, torch.Tensor)
+                  else t for t, a in zip(self.leaves, self.aliases)]
+        return tree_unflatten(leaves, self.spec)
+
+    def close(self) -> None:
+        """Free the graph and its private pool (the outputs are its memory)."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.leaves = self.outputs = self.inputs = self.scalars = None

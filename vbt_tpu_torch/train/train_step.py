@@ -119,7 +119,11 @@ class SGDChain:
     def init(self, params: dict) -> OptState:
         return OptState({k: torch.zeros_like(v) for k, v in params.items()}, 0, self.frozen)
 
-    def update(self, grads: dict, state: OptState, params: dict) -> tuple[dict, OptState]:
+    def update(self, grads: dict, state: OptState, params: dict,
+               lr: float | torch.Tensor | None = None) -> tuple[dict, OptState]:
+        """``lr``: the learning rate, by default the schedule's at the count
+        (a 0-dim device tensor in a captured CUDA graph of the step)."""
+        lr = self.schedule(state.count) if lr is None else lr
         keys = list(params)
         g = [grads[k] for k in keys]
         # clip_by_global_norm: (t / |g|) * max_norm only when |g| >= max_norm.
@@ -135,7 +139,7 @@ class SGDChain:
             g[i] = t
         # sgd: trace = g + momentum * trace; update = -lr(count) * trace.
         trace = torch._foreach_add(g, [state.trace[k] for k in keys], alpha=MOMENTUM)
-        updates = torch._foreach_mul(trace, -self.schedule(state.count))
+        updates = torch._foreach_mul(trace, -lr)
         return (dict(zip(keys, updates)),
                 OptState(dict(zip(keys, trace)), state.count + 1, self.frozen))
 
@@ -182,7 +186,14 @@ class Trainer:
     optimizer and the EMA run as on one device. That is the one-device
     arithmetic over the global batch, which is what GSPMD computes, with
     the batch sums in another order. A mesh of one device is the one-device
-    step."""
+    step.
+
+    ``scalars`` is None, but while a CUDA graph of the step is captured
+    (``train.fused``): then the learning rate, the EMA's decay and ``1 -
+    decay`` as 0-dim device tensors, which the graph reads in place of
+    :meth:`step_scalars`' host numbers."""
+
+    scalars: tuple | None = None
 
     def __init__(self, spec: ModelSpec, base_lr: float = 0.08, total_steps: int = 1000,
                  warmup_steps: int = 100, dtype: torch.dtype = torch.float32,
@@ -244,6 +255,11 @@ class Trainer:
         """Whether ``key`` (a state_dict key) lies in a frozen subtree."""
         return key.split(".")[0] in self.freeze_top_keys
 
+    def step_scalars(self, state: TrainState) -> tuple[float, float, float]:
+        """The learning rate and the EMA's ``(decay, 1 - decay)`` of the step
+        from ``state``, in float32 as JAX has them."""
+        return (self.schedule(state.opt_state.count), *ema_decay_at(state.step, self.ema_decay))
+
     def _compute(self, params: dict) -> dict:
         """The convolutions' parameters in the compute dtype (a no-op but
         under bfloat16); differentiable, so gradients come back in the
@@ -275,9 +291,9 @@ class Trainer:
             grads = {k: grads[k] if k in grads else torch.zeros_like(v)
                      for k, v in state.params.items()}
         with span("train.update"):
-            updates, opt_state = self.tx.update(grads, state.opt_state, state.params)
+            lr, decay, keep = self.scalars or self.step_scalars(state)
+            updates, opt_state = self.tx.update(grads, state.opt_state, state.params, lr)
             new_params = apply_updates(state.params, updates)
-            decay, keep = ema_decay_at(state.step, self.ema_decay)
             keys = list(new_params)
             ema = torch._foreach_add(
                 torch._foreach_mul([state.ema_params[k] for k in keys], decay),
