@@ -12,7 +12,8 @@ JAX test configuration (this file imports neither jax nor vbt_tpu):
   (64, 720, 1280, 3) and at (8, 480, 640, 3); each call grows ``nms.launches``
   by 1, in the turbo lane ``fused_mbconv.launches`` and its "mma" count by
   5, in the int8 lane ``int8_matmul.calls`` by a forward's products, as an
-  eager call does, whether it ran eagerly, captured or replayed.
+  eager call does, whether it ran eagerly, captured or replayed; the
+  capture call is served by the graph's first replay.
 - Nine batches queued before any is read, as ``cli/track.py`` keeps up to 8
   in flight: every held result equals its batch's eager detections.
 - Past ``MAX_RINGS`` keys the graph used longest ago is closed and its
@@ -89,7 +90,7 @@ def _counts():
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("lane", LANES)
 def test_graphed_detections_equal_eager(dev, lane, shape):
-    from vbt_tpu_torch.runtime.graphs import ChainGraph
+    from vbt_tpu_torch.runtime.graphs import Graph
     from vbt_tpu_torch.utils.profiling import StageTimer
 
     batches = _batches(shape, 3)
@@ -100,7 +101,7 @@ def test_graphed_detections_equal_eager(dev, lane, shape):
     per_call = 5 if lane == "turbo" else 0
     assert eager[:3] == (1, per_call, per_call) and (eager[3] > 0) == (lane == "int8")
     timer = StageTimer()
-    order = [0, 1, 2, 0, 1, 2]  # eager, capture, replays
+    order = [0, 1, 2, 0, 1, 2]  # eager, the capture and its first replay, replays
     for n, i in enumerate(order):
         before = _counts()
         with timer.stage("detect"):
@@ -109,8 +110,8 @@ def test_graphed_detections_equal_eager(dev, lane, shape):
         grew = tuple(a - b for a, b in zip(_counts(), before))
         assert grew == eager, (n, grew, eager)
     key = ((*shape, 3), 0.0, "exact", True)
-    assert isinstance(pipe.graphs[key], ChainGraph) and pipe.graphs.failures == 0
-    assert timer.counts["detect.replay"] == len(order) - 2
+    assert isinstance(pipe.graphs[key], Graph) and pipe.graphs.failures == 0
+    assert timer.counts["detect.replay"] == len(order) - 1
     assert timer.counts["detect.forward"] == timer.counts["detect.postprocess"] == len(order)
 
 

@@ -1,5 +1,5 @@
 """The device-resident train step served from a CUDA graph, on the card
-(``runtime/graphs.py::StepGraph``, ``DeviceDataTrainer.step``).
+(``runtime/graphs.py``, ``DeviceDataTrainer.step``).
 
 They skip without a card. On the machine with one, run them without the
 JAX test configuration (this file imports neither jax nor vbt_tpu):
@@ -94,6 +94,7 @@ def _run(ddt, state, dev, batch):
 
 @pytest.mark.parametrize("name", sorted(SPECS))
 def test_graphed_steps_equal_eager_steps_bit_for_bit(name, dev):
+    from vbt_tpu_torch.runtime.graphs import Graph
     from vbt_tpu_torch.train.fused import DeviceDataTrainer
     from vbt_tpu_torch.train.train_step import Trainer
     from vbt_tpu_torch.utils.profiling import StageTimer
@@ -105,7 +106,7 @@ def test_graphed_steps_equal_eager_steps_bit_for_bit(name, dev):
     start = trainer.init_state(seed=0)
 
     eager = DeviceDataTrainer(trainer, data)
-    eager.graphs = eager.stream = None
+    eager.graphs = None
     want = _run(eager, start, dev, batch)
     del eager
     before = _allocated(dev)
@@ -114,7 +115,8 @@ def test_graphed_steps_equal_eager_steps_bit_for_bit(name, dev):
     timer = StageTimer()
     with timer.stage("steps"):
         got = _run(ddt, start, dev, batch)
-    assert ddt.graphs.failures == 0
+    graphs = list(ddt.graphs.graphs.values())  # one key at a time
+    assert len(graphs) == 1 and isinstance(graphs.pop(), Graph) and ddt.graphs.failures == 0
     assert timer.counts["train.replay"] == STEPS - 1
     for i, ((g, g_gen, g_host), (w, w_gen, w_host)) in enumerate(zip(got, want)):
         assert g_host == w_host, i

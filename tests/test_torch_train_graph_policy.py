@@ -1,12 +1,16 @@
 """When the device-resident train step captures and replays a CUDA graph,
-on the CPU (``runtime/graphs.py::StepGraph``, ``train/fused.py``).
+on the CPU (``runtime/graphs.py``, ``train/fused.py``).
 
 - a CPU trainer and a data-parallel (mesh) trainer never capture and never
   record ``train.replay``;
+- ``Trainer.train_step`` with explicit scalars (the learning rate and the
+  EMA's decay and ``1 - decay``, as the graph gives them) equals the step
+  that computes them on the host;
 - ``DeviceDataTrainer.step``'s graph path, with a stand-in graph that runs
-  the captured step again on the CPU at each replay (a capture leaves the
-  generator where it was, as a CUDA capture does; the capture call is
-  served by the first replay): the key holds the batch
+  the captured step again on the CPU at each replay
+  (``tests/torch_cpu_graph.py``: a capture leaves the generator where it
+  was, as a CUDA capture does; the capture call is served by the first
+  replay; eager steps run on the trainer's stream): the key holds the batch
   size, the image size, the compute dtype, the jitter and the generator,
   and not ``mosaic_p``; a new key closes the old graph; replayed steps
   equal eager steps bit for bit (losses, parameters, statistics, trace,
@@ -28,12 +32,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_cpu_graph import CpuGraph, use_cpu_graphs  # noqa: E402
 from torch_threads import one_torch_thread  # noqa: E402, F401
 from torch.utils._pytree import tree_leaves  # noqa: E402
 
 from benchmark.core import registry  # noqa: E402
 from vbt_tpu_torch.models import ModelSpec  # noqa: E402
-from vbt_tpu_torch.runtime.graphs import CapturePolicy, StepGraph  # noqa: E402
+from vbt_tpu_torch.runtime.graphs import GraphedCalls  # noqa: E402
 from vbt_tpu_torch.train import fused  # noqa: E402
 from vbt_tpu_torch.train.data import DetectionDataset  # noqa: E402
 from vbt_tpu_torch.train.fused import DeviceDataTrainer  # noqa: E402
@@ -42,42 +47,11 @@ from vbt_tpu_torch.utils import profiling  # noqa: E402
 from vbt_tpu_torch.utils.profiling import StageTimer, process_timer  # noqa: E402
 
 SIZE, N, B = 64, 8, 4
+STREAM = "the trainer's stream"
 JITTER = (0.5, 1.6)
 MOSAIC = [0.5, 0.5, 0.5, 0.0, 1.0]  # one step each; the replays' p changes
 STAGES = ("train.augment", "train.targets", "train.forward", "train.backward", "train.update",
           "model.backbone", "model.fpn")
-
-
-class _CpuStepGraph(StepGraph):
-    """``StepGraph``'s protocol on the CPU: the capture runs the step once
-    and puts the generators back; each replay runs it again (its spans into
-    a timer of its own: a replay runs no Python) and writes its tensors
-    into the captured outputs."""
-
-    made = 0
-
-    def __init__(self, *args):
-        super().__init__(*args)
-        self.closed = False
-        _CpuStepGraph.made += 1
-
-    def capture(self, fn):
-        states = [g.get_state() for g in self.generators]
-        self.fn = fn
-        self.keep(fn(self.inputs, self.scalars))
-        for g, state in zip(self.generators, states):
-            g.set_state(state)
-
-    def replay(self):
-        with StageTimer().stage("replay"):
-            leaves = tree_leaves(self.fn(self.inputs, self.scalars))
-        new = [t for t, a in zip(leaves, self.aliases) if isinstance(t, torch.Tensor) and a is None]
-        for out, t in zip(self.outputs, new):
-            out.copy_(t)
-
-    def close(self):
-        super().close()
-        self.closed = True
 
 
 def _dataset():
@@ -103,7 +77,7 @@ def _trainer(freeze=(), mesh=None):
 def _graphed(trainer):
     ddt = DeviceDataTrainer(trainer, _dataset(), None, mosaic_p=0.5, jitter=JITTER)
     assert ddt.graphs is None  # a CPU trainer
-    ddt.graphs = CapturePolicy(1)
+    ddt.graphs = GraphedCalls(1, STREAM, fused.REPLAY_SPANS)
     return ddt
 
 
@@ -140,7 +114,7 @@ def _equal(a, b):
 def runs(request):
     """The same steps from one state, eager and through the stand-in graph."""
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(fused, "StepGraph", _CpuStepGraph)
+        ran_on = use_cpu_graphs(mp)
         trainer = _trainer(freeze=request.param)
         start = trainer.init_state(seed=0)
         eager = DeviceDataTrainer(trainer, _dataset(), None, mosaic_p=0.5, jitter=JITTER)
@@ -149,7 +123,24 @@ def runs(request):
         gen = torch.Generator().manual_seed(11)
         got = _steps(ddt, start, gen)
         yield SimpleNamespace(trainer=trainer, ddt=ddt, gen=gen, want=want, got=got,
-                              frozen=request.param)
+                              frozen=request.param, ran_on=ran_on)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_train_step_with_explicit_scalars_equals_the_hosts_own(dtype):
+    trainer = Trainer(ModelSpec("tiny", "lite0", SIZE, 32, 1, 1), base_lr=0.05, total_steps=8,
+                      warmup_steps=1, input_size=SIZE, device="cpu", dtype=dtype)
+    ddt = DeviceDataTrainer(trainer, _dataset(), None, jitter=JITTER)
+    state = trainer.init_state(seed=0)
+    for i in range(2):  # the second step from a state past warm-up, its EMA decay moved
+        batch = ddt.augment(_idx(i), torch.Generator().manual_seed(i), 0.5)
+        want = trainer.train_step(state, batch)
+        scalars = [torch.tensor(v, dtype=trainer.state_dtype)
+                   for v in trainer.step_scalars(state)]
+        got = trainer.train_step(state, batch, scalars)
+        assert _equal(got, want) and got[1]["lr"] == want[1]["lr"], i
+        assert _equal(trainer.train_step(state, batch, trainer.step_scalars(state)), want), i
+        state = want[0]
 
 
 def test_replayed_steps_equal_eager_steps_bit_for_bit(runs):
@@ -162,6 +153,7 @@ def test_replayed_steps_equal_eager_steps_bit_for_bit(runs):
         assert got.metrics["lr"] == want.metrics["lr"]
         assert got.state.opt_state.frozen == want.state.opt_state.frozen == runs.frozen
     assert [g.counts["train.replay"] for g in runs.got] == [0, 1, 1, 1, 1]
+    assert runs.ran_on == [STREAM]  # the first, eager, step ran on the trainer's stream
 
 
 def test_frozen_statistics_come_back_as_the_callers_own(runs):
@@ -186,7 +178,7 @@ def test_an_eager_step_records_the_stages_a_replay_train_replay_alone(runs):
 def test_the_key_holds_batch_size_image_size_dtype_jitter_and_generator(runs):
     key = (B, SIZE, torch.float32, JITTER, runs.gen)
     assert list(runs.ddt.graphs.graphs) == [key]  # mosaic_p changed, the key did not
-    assert _CpuStepGraph.made >= 1 and not runs.ddt.graphs[key].closed
+    assert CpuGraph.made >= 1 and not runs.ddt.graphs[key].closed
 
 
 def test_a_step_never_writes_into_the_state_it_was_given(runs):
@@ -200,7 +192,7 @@ def test_a_step_never_writes_into_the_state_it_was_given(runs):
 
 
 def test_a_new_key_closes_the_old_graph(monkeypatch):
-    monkeypatch.setattr(fused, "StepGraph", _CpuStepGraph)
+    use_cpu_graphs(monkeypatch)
     trainer = _trainer()
     ddt = _graphed(trainer)
     state = trainer.init_state(seed=0)
@@ -219,11 +211,11 @@ def test_a_new_key_closes_the_old_graph(monkeypatch):
 
 
 def test_a_failed_capture_leaves_the_key_eager(monkeypatch):
-    class Failing(_CpuStepGraph):
-        def capture(self, fn):
+    class Failing(CpuGraph):
+        def _record(self, fn):
             raise RuntimeError("operation not permitted when stream is capturing")
 
-    monkeypatch.setattr(fused, "StepGraph", Failing)
+    use_cpu_graphs(monkeypatch, Failing)
     trainer = _trainer()
     ddt = _graphed(trainer)
     start = trainer.init_state(seed=0)
@@ -243,7 +235,7 @@ def test_a_cpu_or_mesh_trainer_never_captures(mesh, monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("a CPU or mesh step made a graph")
 
-    monkeypatch.setattr(fused, "StepGraph", refuse)
+    use_cpu_graphs(monkeypatch, refuse)
     trainer = _trainer(mesh=mesh)
     ddt = DeviceDataTrainer(trainer, _dataset(), None, jitter=JITTER)
     assert ddt.graphs is None

@@ -48,6 +48,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vbt_tpu_torch.utils.profiling import launch_counter
+
 OFF = "off"
 CALIBRATE = "calibrate"
 INT8 = "int8"
@@ -128,7 +130,7 @@ def int8_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(a.contiguous(), w.contiguous().t())[:m, :n]
 
 
-int8_matmul.calls = 0
+launch_counter(int8_matmul, "calls")
 
 
 def gemm_shape(x_shape: tuple[int, ...], w_shape: tuple[int, ...],

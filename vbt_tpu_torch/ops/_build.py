@@ -17,6 +17,11 @@ directory is :data:`BUILD_DIR`, ``build/vbt_tpu_torch/`` beside the package
 (``.gitignore`` lists ``build/``) unless
 :func:`vbt_tpu_torch.utils.cache.enable_persistent_cache` selects another.
 
+A binding declares its launch function's C signature with :func:`bind`,
+passes arrays of device pointers with :func:`pointers` and checks a state
+of many tensors against the layout its kernel takes with
+:func:`check_layout`.
+
 Nothing here runs at import time: the CPU tests import every module on a
 machine without ``nvcc``.
 """
@@ -176,3 +181,35 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _loaded:
             _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return _loaded[name]
+
+
+def bind(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The launch function ``symbol`` of ``name``'s library (:func:`load`),
+    its C signature declared: ``argtypes`` in, a ``cudaError_t`` (an int)
+    out."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def pointers(tensors) -> ctypes.Array | None:
+    """The data pointers of ``tensors`` as a C array (None for None)."""
+    if tensors is None:
+        return None
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+def check_layout(kind: str, fields, layout, device, mismatch: type[Exception] = TypeError) -> list:
+    """The tensors of the named tuple ``fields`` (``kind`` names it in the
+    errors), checked against ``layout``, the same named tuple of the shapes
+    and dtypes the kernel takes: another shape or dtype raises ``mismatch``,
+    a tensor not contiguous on ``device`` ``ValueError``."""
+    for name, t, want in zip(fields._fields, fields, layout):
+        if t.dtype != want.dtype or t.shape != want.shape:
+            raise mismatch(f"{kind}.{name}: the kernel takes {want.dtype} {tuple(want.shape)}, "
+                           f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{kind}.{name}: want a contiguous tensor on {device}, got "
+                             f"{t.device}, strides {t.stride()}")
+    return list(fields)

@@ -31,6 +31,7 @@ from vbt_tpu_torch.analysis.velocity_torch import (
     velocity_step,
 )
 from vbt_tpu_torch.ops import _build
+from vbt_tpu_torch.utils.profiling import launch_counter
 
 Tensor = torch.Tensor
 _INT = torch.int32
@@ -41,10 +42,8 @@ _EVENT_DTYPES = (torch.bool, _INT) + (_F64,) * 7  # EventRecord's fields in orde
 @functools.cache
 def _launcher():
     """``vbt_analysis_scan_launch`` of the built library, its C signature declared."""
-    fn = _build.load("analysis_scan").vbt_analysis_scan_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.bind("analysis_scan", "vbt_analysis_scan_launch",
+                       [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6)
 
 
 def analysis_chunk_plain(plate_diameter: Tensor, smoother: SmootherCarry, carry: VelocityCarry,
@@ -74,22 +73,6 @@ def _carry_layouts() -> tuple[SmootherCarry, VelocityCarry]:
     return initial_smoother(_F64, "meta"), initial_carry(_F64, "meta")
 
 
-def _check(kind: str, fields, layout, dev: torch.device) -> list[Tensor]:
-    """The fields of a carry, checked against the layout the kernel takes:
-    ``layout``, the float64 carry its ``initial_*`` function makes."""
-    for name, t, want in zip(fields._fields, fields, layout):
-        if t.dtype != want.dtype or t.shape != want.shape:
-            raise TypeError(f"{kind}.{name}: the kernel takes {want.dtype} {tuple(want.shape)}, "
-                            f"got {t.dtype} {tuple(t.shape)}")
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{kind}.{name}: want a contiguous tensor on {dev}, got {t.device}")
-    return list(fields)
-
-
-def _pointers(tensors) -> ctypes.Array:
-    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
-
-
 def analysis_scan(plate_diameter: Tensor, smoother: SmootherCarry, carry: VelocityCarry,
                   inputs) -> tuple[SmootherCarry, VelocityCarry, EventRecord]:
     """One chunk: ``inputs`` = (time, x, y, dy_raw, nph, npw), each (N,)
@@ -110,20 +93,19 @@ def analysis_scan(plate_diameter: Tensor, smoother: SmootherCarry, carry: Veloci
         raise TypeError(f"want a float64 plate diameter on {dev}, got {plate_diameter.dtype} "
                         f"{tuple(plate_diameter.shape)} on {plate_diameter.device}")
     smoother_layout, carry_layout = _carry_layouts()
-    s_in = _check("smoother", smoother, smoother_layout, dev)
-    v_in = _check("carry", carry, carry_layout, dev)
+    s_in = _build.check_layout("smoother", smoother, smoother_layout, dev)
+    v_in = _build.check_layout("carry", carry, carry_layout, dev)
     s_out = SmootherCarry(*(torch.empty_like(t) for t in s_in))
     v_out = VelocityCarry(*(torch.empty_like(t) for t in v_in))
     events = EventRecord(*(torch.empty(n, dtype=d, device=dev) for d in _EVENT_DTYPES))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _launcher()(_pointers(inputs), plate_diameter.data_ptr(), n, _pointers(s_in),
-                          _pointers(v_in), _pointers(s_out), _pointers(v_out), _pointers(events),
-                          stream)
+        err = _launcher()(_build.pointers(inputs), plate_diameter.data_ptr(), n,
+                          *map(_build.pointers, (s_in, v_in, s_out, v_out, events)), stream)
     if err != 0:
         raise RuntimeError(f"analysis_scan kernel launch failed: cudaError {err}")
     analysis_scan.launches += 1
     return s_out, v_out, events
 
 
-analysis_scan.launches = 0
+launch_counter(analysis_scan)

@@ -59,6 +59,7 @@ import torch.nn.functional as F
 
 from vbt_tpu_torch.models.conv import same_pads
 from vbt_tpu_torch.ops import _build
+from vbt_tpu_torch.utils.profiling import launch_counter
 
 KERNEL_SIZES = (3, 5)  # the depthwise sizes the CUDA kernels are built for
 MAX_COUT = 128  # project accumulators held in registers (csrc/fused_mbconv.cu kMaxCout)
@@ -276,13 +277,10 @@ def fused_mbconv_plain(x: torch.Tensor, p: FusedBlockParams) -> torch.Tensor:
 def _launcher(variant: str):
     """The C launch function of a variant's built library, its signature declared."""
     if variant == "mma":
-        fn = _build.load("fused_mbconv_mma").vbt_fused_mbconv_mma_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
-    else:
-        fn = _build.load("fused_mbconv").vbt_fused_mbconv_launch
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+        return _build.bind("fused_mbconv_mma", "vbt_fused_mbconv_mma_launch",
+                           [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+    return _build.bind("fused_mbconv", "vbt_fused_mbconv_launch",
+                       [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
 
 
 def fused_mbconv(x: torch.Tensor, p: FusedBlockParams,
@@ -340,5 +338,5 @@ def fused_mbconv(x: torch.Tensor, p: FusedBlockParams,
     return out
 
 
-fused_mbconv.launches = 0
-fused_mbconv.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+launch_counter(fused_mbconv)
+launch_counter(fused_mbconv, "launches_by_variant", VARIANTS)

@@ -27,6 +27,7 @@ from vbt_tpu_torch.ops.postprocess import (
     nms_plain,
     prefilter_candidates,
 )
+from vbt_tpu_torch.utils.profiling import launch_counter
 
 MAX_CANDIDATES = 512  # candidates an image's warps hold in registers (csrc/nms.cu kMaxCandidates)
 
@@ -34,11 +35,8 @@ MAX_CANDIDATES = 512  # candidates an image's warps hold in registers (csrc/nms.
 @functools.cache
 def _launcher():
     """``vbt_nms_launch`` of the built library, its C signature declared."""
-    fn = _build.load("nms").vbt_nms_launch
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.bind("nms", "vbt_nms_launch", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                       + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
 def nms(
@@ -83,7 +81,7 @@ def nms(
     return count, scores, boxes
 
 
-nms.launches = 0
+launch_counter(nms)
 
 
 def detection_postprocess_cuda(

@@ -25,6 +25,7 @@ import torch
 
 from vbt_tpu_torch.ops import _build
 from vbt_tpu_torch.tracking.scan import TrackerState, init_state
+from vbt_tpu_torch.utils.profiling import launch_counter
 
 MAX_SLOTS = 32  # a lane a slot (csrc/track_scan.cu kMaxSlots)
 MAX_DETS = 32  # a lane a detection row (kMaxDets)
@@ -36,12 +37,10 @@ MOMENTUM, RECOVERY, REUPDATE, REPORT_OBS, SKIP_EMPTY = 1, 2, 4, 8, 16
 @functools.cache
 def _launcher():
     """``vbt_track_scan_launch`` of the built library, its C signature declared."""
-    fn = _build.load("track_scan").vbt_track_scan_launch
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
-    return fn
+    return _build.bind("track_scan", "vbt_track_scan_launch",
+                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int]
+                       + [ctypes.c_void_p] * 3)
 
 
 @functools.lru_cache(maxsize=16)
@@ -50,23 +49,6 @@ def _state_layout(cfg, c: int) -> TrackerState:
     as shapes and dtypes only (on the meta device). Cached: building it
     takes about a millisecond of the host, more than a chunk's launch."""
     return init_state(cfg, c, torch.float32, "meta")
-
-
-def _state_fields(cfg, state: TrackerState, c: int, dev: torch.device) -> list[torch.Tensor]:
-    """The fields of ``state``, checked against the kernel's layout."""
-    for name, t, want in zip(TrackerState._fields, state, _state_layout(cfg, c)):
-        if t.shape != want.shape or t.dtype != want.dtype:
-            raise ValueError(f"state.{name}: want {want.dtype} {tuple(want.shape)}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"state.{name}: want a contiguous tensor on {dev}, got "
-                             f"{t.device}, strides {t.stride()}")
-    return list(state)
-
-
-def _pointers(fields) -> ctypes.Array | None:
-    return None if fields is None else (ctypes.c_void_p * len(fields))(
-        *(t.data_ptr() for t in fields))
 
 
 def track_scan(cfg, dets: torch.Tensor, det_valid: torch.Tensor, frame_valid: torch.Tensor,
@@ -103,7 +85,8 @@ def track_scan(cfg, dets: torch.Tensor, det_valid: torch.Tensor, frame_valid: to
                          f"{sorted(ASSO)}; got {cfg.delta_t}, {cfg.asso!r}")
     if not (dets.is_contiguous() and det_valid.is_contiguous() and frame_valid.is_contiguous()):
         raise ValueError("inputs must be contiguous")
-    fields_in = None if state is None else _state_fields(cfg, state, c, dev)
+    fields_in = None if state is None else _build.check_layout(
+        "state", state, _state_layout(cfg, c), dev, mismatch=ValueError)
     final = None
     if return_state:
         final = TrackerState(*(torch.empty(t.shape, dtype=t.dtype, device=dev)
@@ -129,12 +112,12 @@ def track_scan(cfg, dets: torch.Tensor, det_valid: torch.Tensor, frame_valid: to
             dets.data_ptr(), det_valid.data_ptr(), frame_valid.data_ptr(), report.data_ptr(),
             box.data_ptr(), track_id.data_ptr(), conf.data_ptr(), cls.data_ptr(),
             dxdy.data_ptr(), c, t, d, s, cfg.max_age, cfg.min_hits, cfg.iou_threshold,
-            ASSO[cfg.asso], cfg.inertia, cfg.delta_t, flags, _pointers(fields_in),
-            _pointers(None if final is None else list(final)), stream)
+            ASSO[cfg.asso], cfg.inertia, cfg.delta_t, flags, _build.pointers(fields_in),
+            _build.pointers(final), stream)
     if err != 0:
         raise RuntimeError(f"track_scan kernel launch failed: cudaError {err}")
     track_scan.launches += 1
     return (final, outs) if return_state else outs
 
 
-track_scan.launches = 0
+launch_counter(track_scan)

@@ -17,21 +17,17 @@ own size, and each ring pins three buffers.
 
 On a CUDA device, :meth:`DetectionPipeline.detect_batch` serves a batch
 from a captured CUDA graph of the whole device chain behind it
-(preprocess, forward, prefilter, decode, the NMS kernel's launch;
-:mod:`vbt_tpu_torch.runtime.graphs`), keyed by the batch shape, the score
-threshold, the prefilter and the postprocess: the first call of a key runs
-eagerly, the second runs eagerly on the graph's stream and captures, every
-later call replays. The uploaded batch is copied into the graph's static
-input on the compute stream (so a replay still queued keeps its input),
-and the detections are copied out of the static outputs into fresh
-tensors, so a caller may hold the detections of several batches in flight
-(``cli/track.py`` holds up to 8) and read them in any order. The pipeline
-keeps the graphs of the ``MAX_RINGS`` keys used last. On a replay the spans
-``detect.forward`` (the copy in and the replay, which ``detect.replay``
-times alone) and ``detect.postprocess`` (the copy out) each record once,
-and each kernel's launch counter grows by the launches the graph holds.
-The CPU path runs eagerly, and so do :meth:`DetectionPipeline.forward`
-and :meth:`DetectionPipeline.postprocess`, whose outputs are fresh tensors.
+(preprocess, forward, prefilter, decode, the NMS kernel's launch) by the
+protocol of :class:`~vbt_tpu_torch.runtime.graphs.GraphedCalls`: a key
+(the batch shape, the score threshold, the prefilter, the postprocess)
+runs eagerly on the pipeline's stream once, is captured and served by the
+first replay on its second call, and replays after; the ``MAX_RINGS``
+keys used last are kept. The detections are fresh tensors, so a caller
+may hold those of several batches in flight (``cli/track.py`` holds up to
+8). On a replay the spans ``detect.forward`` (the copy in and the replay,
+which ``detect.replay`` times alone) and ``detect.postprocess`` (the copy
+out) each record once. The CPU path runs eagerly, and so do
+:meth:`DetectionPipeline.forward` and :meth:`DetectionPipeline.postprocess`.
 
 Serving policy (:func:`serving_config`): on CUDA, bf16 with the NMS kernel
 (``use_kernel``, always for a single-class model); on the CPU, f32 with
@@ -81,7 +77,7 @@ from vbt_tpu_torch.ops.nms_cuda import detection_postprocess_cuda
 from vbt_tpu_torch.ops.postprocess import Detections, detection_postprocess
 from vbt_tpu_torch.ops.preprocess import preprocess_frames
 from vbt_tpu_torch.runtime.checkpoint import load_checkpoint, load_into
-from vbt_tpu_torch.runtime.graphs import CAPTURE, REPLAY, CapturePolicy, ChainGraph
+from vbt_tpu_torch.runtime.graphs import GraphedCalls, ReplaySpans
 from vbt_tpu_torch.runtime.upload import StagingRing
 from vbt_tpu_torch.utils.device import resolve_device, serving_dtype
 from vbt_tpu_torch.utils.profiling import span, to_host
@@ -90,6 +86,7 @@ MAX_DETECTIONS = 25  # the TFLite postprocess contract
 BACKBONES = ("xla", "turbo")  # the JAX package's names: module convolutions, fused blocks
 QUANT = (q.OFF, q.INT8)
 MAX_RINGS = 4  # staging rings (batch shapes), and graphs, a pipeline keeps
+REPLAY_SPANS = ReplaySpans(load="detect.forward", launch="detect.replay", out="detect.postprocess")
 
 
 def serving_config(device: str | torch.device = "cuda") -> tuple[torch.device, torch.dtype]:
@@ -155,7 +152,8 @@ class DetectionPipeline:
         self.model = q.cast_model(model.eval(), self.device, self.dtype)
         self.anchors = torch.from_numpy(generate_anchors(spec.anchor_config)).to(self.device)
         self.rings: OrderedDict[tuple[int, ...], StagingRing] = OrderedDict()
-        self.graphs = CapturePolicy(MAX_RINGS) if self.device.type == "cuda" else None
+        self.graphs = (GraphedCalls(MAX_RINGS, torch.cuda.Stream(self.device), REPLAY_SPANS)
+                       if self.device.type == "cuda" else None)
 
     @classmethod
     def from_model_arg(cls, model: str, device: str | torch.device = "cuda",
@@ -265,41 +263,19 @@ class DetectionPipeline:
                   prefilter=self.prefilter)
 
     def _eager(self, x: torch.Tensor, score_threshold: float) -> Detections:
+        """The device chain behind :meth:`detect_batch`: what a graph captures."""
         return self.postprocess(*self._forward(x), score_threshold)
-
-    def _chain(self, x: torch.Tensor, score_threshold: float) -> Detections:
-        """The device chain behind :meth:`detect_batch`, without spans: what a graph captures."""
-        images = preprocess_frames(x, self.spec.input_size, self.dtype)
-        return self._postprocess(*self.run_model(images), score_threshold)
 
     @torch.inference_mode()
     def detect_batch(self, frames, score_threshold: float = 0.0) -> Detections:
         """uint8 RGB (B, H, W, 3) -> Detections on the pipeline's device,
-        fresh tensors the caller may hold. On CUDA a key's third call on
-        replays its graph (module docstring)."""
+        fresh tensors the caller may hold. On CUDA from a key's second call
+        on, a replay of its graph (module docstring)."""
         x = self._frames(frames)
-        key = (tuple(x.shape), float(score_threshold), self.prefilter, self.use_kernel)
-        use = self.graphs.use(key) if self.graphs is not None else None
-        if use == REPLAY:
-            graph = self.graphs[key]
-            with span("detect.forward"):
-                graph.load(x)
-                with span("detect.replay"):
-                    graph.replay()
-            with span("detect.postprocess"):
-                return Detections(*(t.clone() for t in graph.outputs))
-        if use != CAPTURE:
+        if self.graphs is None:
             return self._eager(x, score_threshold)
-        graph = ChainGraph(x)
-        det = graph.warm_up(lambda t: self._eager(t, score_threshold))
-        try:
-            graph.capture(lambda t: self._chain(t, score_threshold))
-        except RuntimeError as err:
-            graph.close()
-            self.graphs.refuse(key, err)
-        else:
-            self.graphs.keep(key, graph)
-        return det
+        key = (tuple(x.shape), float(score_threshold), self.prefilter, self.use_kernel)
+        return self.graphs(key, lambda inputs, _: self._eager(inputs[0], score_threshold), [x])
 
     def detections_to_tracker_inputs(self, det: Detections,
                                      threshold: float) -> tuple[np.ndarray, np.ndarray]:

@@ -11,25 +11,18 @@ caller reads them, once an epoch.
 
 On a CUDA trainer with no mesh and a float32 state, a step is served from
 a captured CUDA graph of the whole chain (gather, augment, targets, forward,
-backward, SGD, EMA), one launch where the eager step issues thousands
-(:class:`~vbt_tpu_torch.runtime.graphs.StepGraph`). A key holds what the
-graph bakes in: the batch size, the image size, the compute dtype, the
-jitter and the generator. Its first call runs eagerly, on the trainer's
-own stream (the warm-up a capture asks for; every eager step of such a
-trainer runs there); the second captures the graph on that stream
-(``torch.cuda.graph`` frees the cached blocks first, so that the graph's
-private pool takes the eager step's room) and is served by the graph's
-first replay. A replay copies the state, the index batch and the step's
-scalars (the learning rate, the EMA's decay and ``1 - decay``,
-``mosaic_p``: 0-dim tensors the graph reads, computed on the host as the
-eager step computes them) into the graph's static inputs, replays, and
-hands back copies of the new state and metrics, so that no step writes
-into the state it was given and a result held stays as it was. The
-generator is registered with the graph: a replay draws what the eager step
-would and leaves the generator in the same state. One key at a time, so
-that at most one graph's private pool (a step's activations) lives; a new
-key closes the old graph. A key whose capture raised stays eager. The CPU,
-float64 and data-parallel steps are always eager.
+backward, SGD, EMA), one launch where the eager step issues thousands, by
+the protocol of :class:`~vbt_tpu_torch.runtime.graphs.GraphedCalls`: a key
+(the batch size, the image size, the compute dtype, the jitter, the
+generator) runs eagerly on the trainer's stream once, is captured and
+served by the first replay on its second call, and replays after. The
+state, the index batch and the step's scalars (the learning rate, the
+EMA's decay and ``1 - decay``, ``mosaic_p``, computed on the host as the
+eager step computes them) go in, fresh copies of the new state and
+metrics come out, so that no step writes into the state it was given; the
+generator advances as in the eager step. One key at a time, so that at
+most one graph's private pool (a step's activations) lives. The CPU,
+float64 and data-parallel steps are always eager, with no graph.
 
 Each step records the host-clock span ``train.step``. An eager step
 records inside it ``train.augment`` here and ``train.targets``,
@@ -46,11 +39,13 @@ import numpy as np
 import torch
 
 from vbt_tpu_torch.ops.preprocess import MEAN_RGB, STDDEV_RGB
-from vbt_tpu_torch.runtime.graphs import CAPTURE, REPLAY, CapturePolicy, StepGraph, run_on
+from vbt_tpu_torch.runtime.graphs import GraphedCalls, ReplaySpans
 from vbt_tpu_torch.train.augment import augment_mosaic_and_normalize, draw_mosaic
 from vbt_tpu_torch.train.data import DetectionDataset
 from vbt_tpu_torch.train.train_step import Trainer, TrainState
-from vbt_tpu_torch.utils.profiling import StageTimer, span
+from vbt_tpu_torch.utils.profiling import span
+
+REPLAY_SPANS = ReplaySpans(call="train.replay")
 
 
 class DeviceDataTrainer:
@@ -67,8 +62,8 @@ class DeviceDataTrainer:
         self._valid = self._upload(valid_ds) if valid_ds is not None and len(valid_ds) else None
         graphed = (trainer.device.type == "cuda" and trainer.mesh is None
                    and trainer.state_dtype == torch.float32)
-        self.graphs = CapturePolicy(1) if graphed else None
-        self.stream = torch.cuda.Stream(trainer.device) if graphed else None
+        self.graphs = (GraphedCalls(1, torch.cuda.Stream(trainer.device), REPLAY_SPANS)
+                       if graphed else None)
         params = set(trainer.param_keys)
         self._stat_keys = [k for k in trainer.model.state_dict() if k not in params]
 
@@ -92,23 +87,18 @@ class DeviceDataTrainer:
         (the span ``train.step``); on a CUDA trainer from a key's second call
         on, a replay of its graph (module docstring)."""
         with span("train.step"):
-            use = None
-            if self.graphs is not None:
-                key = (idx.shape[0], self._train[0].shape[1], self.trainer.dtype,
-                       tuple(self.jitter), generator)
-                use = self.graphs.use(key)
-            if use == CAPTURE and self._capture(key, state, idx, generator, mosaic_p):
-                use = REPLAY
-            if use == REPLAY:
-                with span("train.replay"):
-                    return self._replay(self.graphs[key], state, idx, mosaic_p)
-            if self.stream is None:
-                return self._step(state, idx, generator, mosaic_p)
-            return run_on(self.stream, lambda: self._step(state, idx, generator, mosaic_p))
-
-    def _step(self, state: TrainState, idx: torch.Tensor, generator: torch.Generator,
-              mosaic_p: float | torch.Tensor):
-        return self.trainer.train_step(state, self.augment(idx, generator, mosaic_p))
+            if self.graphs is None:
+                return self.trainer.train_step(state, self.augment(idx, generator, mosaic_p))
+            key = (idx.shape[0], self._train[0].shape[1], self.trainer.dtype,
+                   tuple(self.jitter), generator)
+            new, metrics = self.graphs(
+                key, lambda inputs, scalars: self._graphed(state, generator, inputs, scalars),
+                self._flat(state) + [idx], [*self.trainer.step_scalars(state), mosaic_p],
+                (generator,))
+            # A replay hands back the counts and the learning rate it captured.
+            metrics["lr"] = self.trainer.schedule(state.step)
+            return new._replace(step=state.step + 1, opt_state=new.opt_state._replace(
+                count=state.opt_state.count + 1)), metrics
 
     def _flat(self, state: TrainState) -> list:
         """The state's tensors in the graph's order: parameters, running
@@ -117,57 +107,22 @@ class DeviceDataTrainer:
         return ([state.params[k] for k in p] + [state.batch_stats[k] for k in s]
                 + [state.opt_state.trace[k] for k in p] + [state.ema_params[k] for k in p])
 
-    def _scalars(self, state: TrainState, mosaic_p: float) -> list:
-        return [*self.trainer.step_scalars(state), mosaic_p]
-
     def _graphed(self, state: TrainState, generator: torch.Generator, inputs: list,
                  scalars: list):
-        """The step on the graph's static inputs (``_flat``'s tensors, then
-        the index batch), its learning rate, EMA decay and mosaic
-        probability read from the card: what the graph captures. ``state``
-        gives the rest (the counts, the frozen keys)."""
+        """The step on ``inputs`` (``_flat``'s tensors, then the index
+        batch) with ``scalars`` (the learning rate, the EMA's decay and
+        ``1 - decay``, the mosaic probability): host numbers in an eager
+        step, the graph's 0-dim tensors in a capture. ``state`` gives the
+        rest (the counts, the frozen keys)."""
         *flat, idx = inputs
         p, s = self.trainer.param_keys, self._stat_keys
         n, m = len(p), len(s)
         static = TrainState(state.step, dict(zip(p, flat[:n])), dict(zip(s, flat[n:n + m])),
                             state.opt_state._replace(trace=dict(zip(p, flat[n + m:2 * n + m]))),
                             dict(zip(p, flat[2 * n + m:])))
-        lr, decay, keep, mosaic_p = scalars
-        self.trainer.scalars = (lr, decay, keep)
-        try:
-            return self._step(static, idx, generator, mosaic_p)
-        finally:
-            self.trainer.scalars = None
-
-    def _capture(self, key, state: TrainState, idx: torch.Tensor, generator: torch.Generator,
-                 mosaic_p: float) -> bool:
-        """Capture ``key``'s graph on the stream its first, eager, call ran
-        on; False where the capture raised (the key is then served
-        eagerly)."""
-        graph = StepGraph(self._flat(state) + [idx], self._scalars(state, mosaic_p),
-                          self.trainer.state_dtype, (generator,), self.stream)
-        try:
-            with StageTimer().stage("train.capture"):  # the capture's spans time no step
-                graph.capture(lambda inputs, scalars: self._graphed(state, generator, inputs,
-                                                                     scalars))
-        except RuntimeError as err:
-            graph.close()
-            self.graphs.refuse(key, err)
-            return False
-        self.graphs.keep(key, graph)
-        return True
-
-    def _replay(self, graph: StepGraph, state: TrainState, idx: torch.Tensor, mosaic_p: float):
-        """The step from ``graph``: ``state``, ``idx`` and the scalars in,
-        one replay, fresh copies of the new state and metrics out, with the
-        host's counts and learning rate."""
-        inputs = self._flat(state) + [idx]
-        graph.load(inputs, self._scalars(state, mosaic_p))
-        graph.replay()
-        new, metrics = graph.fresh_outputs(inputs)
-        metrics["lr"] = self.trainer.schedule(state.step)
-        return new._replace(step=state.step + 1, opt_state=new.opt_state._replace(
-            count=state.opt_state.count + 1)), metrics
+        *step_scalars, mosaic_p = scalars
+        return self.trainer.train_step(static, self.augment(idx, generator, mosaic_p),
+                                       step_scalars)
 
     def epoch(self, state: TrainState, rng: np.random.Generator, batch_size: int,
               generator: torch.Generator, max_batches: int | None = None,

@@ -186,14 +186,7 @@ class Trainer:
     optimizer and the EMA run as on one device. That is the one-device
     arithmetic over the global batch, which is what GSPMD computes, with
     the batch sums in another order. A mesh of one device is the one-device
-    step.
-
-    ``scalars`` is None, but while a CUDA graph of the step is captured
-    (``train.fused``): then the learning rate, the EMA's decay and ``1 -
-    decay`` as 0-dim device tensors, which the graph reads in place of
-    :meth:`step_scalars`' host numbers."""
-
-    scalars: tuple | None = None
+    step."""
 
     def __init__(self, spec: ModelSpec, base_lr: float = 0.08, total_steps: int = 1000,
                  warmup_steps: int = 100, dtype: torch.dtype = torch.float32,
@@ -266,10 +259,13 @@ class Trainer:
         state's dtype."""
         return {k: v.to(self.dtype) if k in self.conv_keys else v for k, v in params.items()}
 
-    def train_step(self, state: TrainState, batch: dict):
+    def train_step(self, state: TrainState, batch: dict, scalars=None):
         """batch: images (B, 3, S, S) float32 normalized, gt_boxes (B, G, 4)
         pixels, gt_valid (B, G) bool, on the trainer's device. Returns (new
         state, metrics); the metrics stay on the device, but ``lr``, a float.
+        ``scalars``, the learning rate and the EMA's ``(decay, 1 - decay)``,
+        are :meth:`step_scalars`' where None; a CUDA graph of the step
+        (``train.fused``) gives them as 0-dim device tensors it reads.
         Host-clock spans: ``train.targets``, ``train.forward`` (with the
         loss), ``train.backward`` (with the zero fill of frozen leaves) and
         ``train.update`` (SGD, then the EMA)."""
@@ -291,7 +287,7 @@ class Trainer:
             grads = {k: grads[k] if k in grads else torch.zeros_like(v)
                      for k, v in state.params.items()}
         with span("train.update"):
-            lr, decay, keep = self.scalars or self.step_scalars(state)
+            lr, decay, keep = self.step_scalars(state) if scalars is None else scalars
             updates, opt_state = self.tx.update(grads, state.opt_state, state.params, lr)
             new_params = apply_updates(state.params, updates)
             keys = list(new_params)

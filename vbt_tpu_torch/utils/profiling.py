@@ -5,7 +5,14 @@
 - :func:`span`, a named host-clock span inside a stage, and :func:`to_host`,
   a device-to-host read timed as the span ``<layer>.readback``;
 - :func:`trace`, a ``torch.profiler`` trace of the CPU and the card written
-  as a TensorBoard-loadable file, the counterpart of ``jax.profiler``'s.
+  as a TensorBoard-loadable file, the counterpart of ``jax.profiler``'s;
+- :func:`launch_counter`, the registry of the kernels' launch counters
+  (``nms.launches``, ``fused_mbconv.launches`` and
+  ``fused_mbconv.launches_by_variant``, ``int8_matmul.calls``,
+  ``track_scan.launches``, ``analysis_scan.launches``): each binding
+  registers its own where it is defined, and a CUDA graph's replay adds to
+  every registered counter the launches the graph holds
+  (:mod:`vbt_tpu_torch.runtime.graphs`).
 
 A span records into the innermost :class:`StageTimer` whose stage is open
 around it on the calling thread (a ``contextvars`` variable), so a caller's
@@ -122,6 +129,39 @@ def span(name: str) -> _Span:
     """``with span(name): ...`` times the block into the innermost open
     stage's timer, else into :func:`process_timer`."""
     return _Span(name)
+
+
+# Registered launch counters: name -> (owner, attribute, key of a dict-valued
+# attribute or None).
+_COUNTERS: dict[str, tuple[object, str, object]] = {}
+
+
+def launch_counter(owner, attr: str = "launches", keys: tuple = ()) -> None:
+    """Register ``owner.<attr>`` as a count of kernel launches and set it to
+    0: an int, or with ``keys`` a dict of one int a key. Read by attribute
+    as before; :func:`launch_counts` and :func:`add_launches` reach every
+    registered counter."""
+    setattr(owner, attr, dict.fromkeys(keys, 0) if keys else 0)
+    base = f"{owner.__module__}.{owner.__qualname__}.{attr}"
+    for key in keys or (None,):
+        _COUNTERS[base if key is None else f"{base}[{key}]"] = (owner, attr, key)
+
+
+def launch_counts() -> dict[str, int]:
+    """Every registered counter's value, by name."""
+    return {name: getattr(owner, attr) if key is None else getattr(owner, attr)[key]
+            for name, (owner, attr, key) in _COUNTERS.items()}
+
+
+def add_launches(counts: dict[str, int], sign: int = 1) -> None:
+    """Add ``sign`` times ``counts`` (named as :func:`launch_counts` names
+    them) to the registered counters."""
+    for name, n in counts.items():
+        owner, attr, key = _COUNTERS[name]
+        if key is None:
+            setattr(owner, attr, getattr(owner, attr) + sign * n)
+        else:
+            getattr(owner, attr)[key] += sign * n
 
 
 def to_host(tensor, layer: str):
