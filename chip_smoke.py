@@ -25,7 +25,12 @@ Phases, each of which raises on failure:
    same inputs, on the tracker's test scenes, four ragged clips in one
    launch (and each alone, bit for bit) and, after phase 4, the main path's
    real detections: report, ids and conf exact, boxes within 1e-6, dxdy
-   within ``K3_DXDY_ATOL``;
+   within ``K3_DXDY_ATOL``. The fused train-mode BatchNorm and activation
+   (``ops/batchnorm_act.py``'s wrapper and its autograd) at the largest and
+   the smallest BatchNorm input of lite0 and of D3 (``BN_SHAPES``): y and
+   the gradients of x, the weight and the bias within ``BN_TOL`` of the
+   plain version's float64 autograd, y and the running statistics bit for
+   bit its float32 ones;
 4. the main path, both backbones: the shipped EfficientDet-Lite0 weights
    served in bf16 on the card, 4 batches of 64 synthetic 720x1280 frames of
    a moving plate (8 periods of 32 frames), ``detect_batch`` (through the
@@ -52,7 +57,9 @@ Phases, each of which raises on failure:
    ``unfused_ms``); K3 by CUDA events on the main path's detections (C = 1,
    T = 256) and on synthetic 60 s clips (C = 1 and C = 16, T = 1800),
    beside the host OC-SORT on the same detections and the plain version on
-   the card over 16 frames;
+   the card over 16 frames; the three fused BatchNorm kernels at
+   ``BN_SHAPES`` (device time in a profiler trace) beside their bound by
+   bytes, with the fused and the plain forward and backward;
 7. where one batch's time goes, for each backbone: the forward's device
    time (CUDA events over 10 calls on one preprocessed batch), stage spans
    through the pinned ring (the host's fill of the staging buffer, the copy
@@ -105,7 +112,10 @@ Phases, each of which raises on failure:
    difference over its bound printed);
    (b) ``DeviceDataTrainer`` from scratch on 64 synthetic plate images,
    B = 32, 30 steps with mosaic: the mean loss of the last 5 steps below
-   that of the first 5, and the validation loss; (c) heads-only from the
+   that of the first 5, and the validation loss; with the counts at 0
+   before, each fused BatchNorm kernel launched once a BatchNorm a step
+   (106 a lite0 step, eager or replayed), and every train-mode BatchNorm
+   call on the card fused; (c) heads-only from the
    shipped ``efficientdet_lite0_whole.msgpack`` as donor: backbone and BiFPN
    parameters and statistics bit for bit the donor's after 6 steps; (d)
    ``save_train_checkpoint`` -> ``load_train_checkpoint`` bit for bit, then
@@ -235,6 +245,7 @@ import argparse
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -313,6 +324,21 @@ STEP_CHECK_BATCH = 8
 TRAIN_BOUNDS = {"float32": (1e-4, 5e-2, 1e-5), "float64": (1e-9, 1e-7, 1e-12),
                 "bfloat16": (3e-2, 2.0, 1e-6)}
 TRAIN_CHECK_LR = 0.01
+# The fused train-mode BatchNorm (csrc/batchnorm_act.cu) at the largest and
+# the smallest BatchNorm input of lite0 (320 px, B = 64, ReLU6) and of D3
+# (896 px, B = 8, swish). Against autograd of the plain version in float64:
+# y, dx, dw and db within BN_TOL of their largest value (float32 rounding
+# of the kernels' own sums); against the plain version in float32: y and
+# the running statistics bit for bit (the kernels take its reductions and
+# repeat its roundings).
+BN_SHAPES = {"lite0 largest": ((64, 96, 160, 160), "relu6"),
+             "lite0 smallest": ((64, 64, 3, 3), "relu6"),
+             "d3 largest": ((8, 144, 448, 448), "swish"),
+             "d3 smallest": ((8, 160, 7, 7), "swish")}
+BN_TOL = 1e-5
+# Bytes an element of each kernel: each input read and each output written once.
+BN_BYTES = {"apply_kernel": 8, "grad_partials_kernel": 8, "grad_apply_kernel": 12}
+BN_TRACED = 10  # calls in the profiler trace that times each kernel
 FREEZE = ("backbone", "fpn")
 # Phase 14.
 WEDGED_DEADLINE_S = 3.0
@@ -1174,6 +1200,7 @@ def main(argv=None) -> int:
             k2_err[dtype_name] = max(k2_err[dtype_name], _hold_k2(label, x, p, dtype_name))
 
     k3_err = _hold_k3_scenes()
+    bn_err = max(_hold_bn(label, shape, act) for label, (shape, act) in BN_SHAPES.items())
 
     # 4. The main path, bf16 on the card, each backbone with the counts at 0.
     t0 = time.perf_counter()
@@ -1201,6 +1228,7 @@ def main(argv=None) -> int:
 
     records = _time_kernels(pipe, small, dev, nms_err, k2_err, k2_timing_inputs,
                             xla["launches"], turbo_run["launches"])
+    bn_records = _time_bn(bn_err)
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
     _where_the_time_goes(pipe, turbo, frames)
 
@@ -1224,7 +1252,9 @@ def main(argv=None) -> int:
     # 12. Evaluation, batch 1 an image, both lanes.
     _eval_lanes({"bf16": pipe, "int8": qpipe}, kernels)
     # 13. Training.
-    records[0]["train_launches"] = _train_phase(kernels)
+    records[0]["train_launches"], bn_launches = _train_phase(kernels)
+    for record in bn_records:
+        record.update(bn_launches)
     # 14. The operational shell, the ground-truth CLIs and bf16 training.
     records[0]["probe_launches"], records[0]["trace_launches"] = _shell_phase(pipe, frames,
                                                                              kernels)
@@ -1245,7 +1275,7 @@ def main(argv=None) -> int:
     for record in records:
         record["e2e_launches"] = e2e[record["name"]]
     print(f"whole run {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": records}))
+    print(json.dumps({"kernels": records + bn_records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
@@ -1558,6 +1588,148 @@ def _time_k4(series, k4_err, stream) -> dict:
           f"bound {record['bound_ms'] * 1e6:.3f} ns ({record['bound_by']}: {n_bytes} bytes, "
           f"{n_ops} float64 operations)")
     return record
+
+
+def _bn_case(shape, seed: int = 0):
+    """Seeded (x, dy, weight, bias, running mean, running var) on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    c = shape[1]
+    x = torch.randn(shape, generator=gen, device="cuda") * 2 + 0.5
+    dy = torch.randn(shape, generator=gen, device="cuda")
+    w = torch.rand(c, generator=gen, device="cuda") * 3 + 0.5
+    b = torch.rand(c, generator=gen, device="cuda") * 2 - 1
+    rm = torch.rand(c, generator=gen, device="cuda")
+    rv = torch.rand(c, generator=gen, device="cuda") + 0.5
+    return x, dy, w, b, rm, rv
+
+
+def _bn_act(name: str):
+    import torch.nn.functional as F
+
+    return {"relu6": F.relu6, "swish": F.silu}[name]
+
+
+def _hold_bn(label, shape, act) -> float:
+    """Phase 3: the fused BatchNorm's wrapper and autograd on the card
+    against the plain version (``BN_TOL``; ReLU6's mask in float64 taken from
+    the kernels' y, so that a pre-activation within float32 rounding of 0
+    or 6 falls on the same side). Returns the largest gap."""
+    import torch
+    import torch.nn.functional as F
+    from vbt_tpu_torch.ops.batchnorm_act import batchnorm_act, batchnorm_act_plain
+
+    x, dy, w, b, rm, rv = _bn_case(shape)
+    fn = _bn_act(act)
+    xk, wk, bk = (t.clone().requires_grad_(True) for t in (x, w, b))
+    rmk, rvk, rmp, rvp = rm.clone(), rv.clone(), rm.clone(), rv.clone()
+    y = batchnorm_act(xk, wk, bk, rmk, rvk, fn)
+    got = (y.detach(), *torch.autograd.grad(y, (xk, wk, bk), dy))
+    del xk, y
+    with torch.no_grad():
+        same = torch.equal(got[0], batchnorm_act_plain(x, w, b, rmp, rvp, fn))
+    same = same and torch.equal(rmk, rmp) and torch.equal(rvk, rvp)
+    x64, w64, b64 = (t.double().requires_grad_(True) for t in (x, w, b))
+    pre = batchnorm_act_plain(x64, w64, b64, rm.double(), rv.double())
+    if act == "relu6":
+        mask = ((got[0] > 0) & (got[0] < 6)).double()
+        want = (F.relu6(pre).detach(),
+                *torch.autograd.grad(pre, (x64, w64, b64), dy.double() * mask))
+    else:
+        y64 = fn(pre)
+        want = (y64.detach(), *torch.autograd.grad(y64, (x64, w64, b64), dy.double()))
+    gaps = {k: ((g.double() - v).abs().max() / v.abs().max().clamp_min(1e-30)).item()
+            for k, g, v in zip(("y", "dx", "dw", "db"), got, want)}
+    del x64, pre, want, got
+    torch.cuda.empty_cache()
+    print(f"batchnorm_act {label} {tuple(shape)} {act}: against float64 autograd of the plain "
+          f"version " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+          + f" (bound {BN_TOL}); y and running statistics "
+          + ("bit for bit the plain version's" if same else "DIFFER from the plain version's"))
+    if max(gaps.values()) > BN_TOL or not same:
+        raise AssertionError(f"batchnorm_act {label}: {gaps}, bit for bit {same}")
+    return max(gaps.values())
+
+
+def _bn_kernel_ms(fn) -> dict:
+    """Device ms a call of each BatchNorm kernel ``fn`` launches, from a
+    ``torch.profiler`` trace of ``BN_TRACED`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(BN_TRACED):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        found = re.search(r"\b(" + "|".join(BN_BYTES) + r")<", evt.key)
+        if found:
+            out[found.group(1)] = (out.get(found.group(1), 0.0)
+                                   + evt.device_time_total / 1e3 / BN_TRACED)
+    return out
+
+
+def _time_bn(bn_err) -> list[dict]:
+    """Phase 6: each fused BatchNorm kernel at ``BN_SHAPES`` (its device time
+    in a profiler trace), beside its bound by bytes; the fused forward (the
+    plain version's two reductions, then the kernel) and backward, and the
+    plain version's forward and backward (autograd), by CUDA events over 20
+    calls. Returns a record a kernel; phase 13 adds its launches."""
+    import torch
+    from vbt_tpu_torch.ops import batchnorm_act as bn_ops
+
+    records = {k: {"name": k, "route": "cuda", "source": "vbt_tpu_torch/csrc/batchnorm_act.cu",
+                   "replaces": None, "max_abs_err": bn_err, "library_ms": None,
+                   "bound_by": "bytes", "bytes_per_element": n, "shapes": []}
+               for k, n in BN_BYTES.items()}
+    for label, (shape, act) in BN_SHAPES.items():
+        x, dy, w, b, rm, rv = _bn_case(shape)
+        fn = _bn_act(act)
+        _, stats = bn_ops._forward(x, w, b, rm, rv, fn)
+
+        def forward():
+            bn_ops._forward(x, w, b, rm, rv, fn)
+
+        def backward():
+            bn_ops._backward(x, dy, w, b, stats, fn)
+
+        xp, wp, bp = (t.clone().requires_grad_(True) for t in (x, w, b))
+        yp = bn_ops.batchnorm_act_plain(xp, wp, bp, rm, rv, fn)
+
+        def plain_forward():
+            with torch.no_grad():
+                bn_ops.batchnorm_act_plain(xp, wp, bp, rm, rv, fn)
+
+        fused = {"forward": _cuda_ms(forward, reps=20), "backward": _cuda_ms(backward, reps=20)}
+        plain = {"forward": _cuda_ms(plain_forward, reps=20),
+                 "backward": _cuda_ms(lambda: torch.autograd.grad(
+                     yp, (xp, wp, bp), dy, retain_graph=True), reps=20)}
+        ms = {**_bn_kernel_ms(forward), **_bn_kernel_ms(backward)}
+        for k, record in records.items():
+            part = "forward" if k == "apply_kernel" else "backward"
+            bound = BN_BYTES[k] * x.numel() / HBM_BYTES_PER_S * 1e3
+            record["shapes"].append({"case": label, "shape": list(shape), "act": act,
+                                     "ms": ms[k], "bound_ms": bound,
+                                     f"fused_{part}_ms": fused[part],
+                                     f"plain_{part}_ms": plain[part]})
+            print(f"{k} {label} {tuple(shape)} {act}: {ms[k]:.5f} ms on the card (profiler), "
+                  f"bound {bound:.6f} ms (bytes, {BN_BYTES[k]} B an element); the fused "
+                  f"{part} {fused[part]:.4f} ms, the plain {part} {plain[part]:.4f} ms")
+        del x, dy, xp, yp, stats
+        torch.cuda.empty_cache()
+    for record in records.values():
+        record["ms"] = [c["ms"] for c in record["shapes"]]
+        record["bound_ms"] = [c["bound_ms"] for c in record["shapes"]]
+        part = "forward" if record["name"] == "apply_kernel" else "backward"
+        record["plain_ms"] = [c[f"plain_{part}_ms"] for c in record["shapes"]]
+        record["timed"] = (f"each of {list(BN_SHAPES)}: ms the kernel's device time a call in "
+                           f"a profiler trace of {BN_TRACED} calls; plain_ms the plain "
+                           f"version's {part} (torch ops, autograd), CUDA events over 20 calls")
+    return list(records.values())
 
 
 def _int8_products(qpipe, images) -> dict:
@@ -1949,11 +2121,14 @@ def _train_profile(ddt, state, idx, gen, step_ms) -> None:
           f"({rest / busy_us:.1%})")
 
 
-def _train_phase(kernels) -> int:
+def _train_phase(kernels) -> tuple[int, dict]:
     """Phase 13: training (see the module docstring). Returns NMS launches
-    in the evaluation of the trained parameters."""
+    in the evaluation of the trained parameters, and the fused BatchNorm
+    kernels' launches in (b), in all and a step."""
     import torch
     from vbt_tpu_torch.cli.train import donor_state
+    from vbt_tpu_torch.models.conv import BatchNorm
+    from vbt_tpu_torch.ops.batchnorm_act import batchnorm_act
     from vbt_tpu_torch.models import get_model_spec
     from vbt_tpu_torch.runtime.checkpoint import (
         latest_train_checkpoint,
@@ -1980,12 +2155,25 @@ def _train_phase(kernels) -> int:
     rng, gen = np.random.default_rng(0), torch.Generator(device="cuda").manual_seed(0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    for counter in (batchnorm_act.launches, BatchNorm.train_calls):
+        counter.update(dict.fromkeys(counter, 0))
     t0 = time.perf_counter()
     metrics = []
     while len(metrics) < TRAIN_STEPS:
         state, more, gen = ddt.epoch(state, rng, TRAIN_BATCH, gen,
                                      max_batches=TRAIN_STEPS - len(metrics))
         metrics += more
+    # Every BatchNorm of the step takes the fused kernels, eager or replayed.
+    n_bn = sum(isinstance(m, BatchNorm) for m in trainer.model.modules())
+    want = n_bn * len(metrics)
+    print(f"fused BatchNorm in {len(metrics)} steps of {n_bn} BatchNorms: launches "
+          f"{batchnorm_act.launches}, train-mode calls {BatchNorm.train_calls}")
+    if (set(batchnorm_act.launches.values()) != {want} or n_bn != 106
+            or BatchNorm.train_calls != {"card": want, "fused": want}):
+        raise AssertionError(f"train from scratch: fused BatchNorm launches "
+                             f"{batchnorm_act.launches}, calls {BatchNorm.train_calls}, want "
+                             f"{want} each ({n_bn} BatchNorms, 106 in lite0)")
+    bn_launches = {"launches": want, "launches_per_step": n_bn}
     losses = torch.stack([m["loss"] for m in metrics]).cpu().numpy()  # one read back
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2079,7 +2267,7 @@ def _train_phase(kernels) -> int:
     if not same_dets:
         raise AssertionError("the exported checkpoint does not give the same detections")
     print(f"phase 13 (training) {time.perf_counter() - t_phase:.1f} s")
-    return launches
+    return launches, bn_launches
 
 
 def _probe_phase() -> int:

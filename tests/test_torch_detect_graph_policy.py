@@ -116,6 +116,7 @@ def test_a_key_whose_capture_failed_is_never_captured_again(monkeypatch):
 def test_every_kernel_binding_registers_its_launch_counter():
     from vbt_tpu_torch.models.quant import int8_matmul
     from vbt_tpu_torch.ops.analysis_scan_cuda import analysis_scan
+    from vbt_tpu_torch.ops.batchnorm_act import batchnorm_act
     from vbt_tpu_torch.ops.fused_mbconv import VARIANTS, fused_mbconv
     from vbt_tpu_torch.ops.nms_cuda import nms
     from vbt_tpu_torch.ops.track_scan_cuda import track_scan
@@ -128,6 +129,8 @@ def test_every_kernel_binding_registers_its_launch_counter():
     for v in VARIANTS:
         name = f"{fused_mbconv.__module__}.fused_mbconv.launches_by_variant[{v}]"
         assert counts[name] == fused_mbconv.launches_by_variant[v]
+    for k, n in batchnorm_act.launches.items():
+        assert counts[f"{batchnorm_act.__module__}.batchnorm_act.launches[{k}]"] == n
 
 
 def test_a_replay_advances_each_registered_counter_and_the_capture_leaves_them(monkeypatch):

@@ -8,6 +8,11 @@ weight. XLA's SAME padding is asymmetric for stride 2 (``pad_lo = total //
 ``F.pad``. A dense conv (``groups == 1``) also runs the quant modes of
 :mod:`vbt_tpu_torch.models.quant`; its float ("off") path is the plain
 convolution, unchanged.
+
+:class:`BatchNorm` in train mode takes the fused kernels of
+:mod:`vbt_tpu_torch.ops.batchnorm_act` for a float32 tensor on the card
+with no ``reduce_stats``, the activation after it included, and their plain
+version in torch ops otherwise.
 """
 
 from __future__ import annotations
@@ -17,9 +22,15 @@ import torch.nn.functional as F
 from torch import nn
 
 from vbt_tpu_torch.models import quant as q
+from vbt_tpu_torch.ops import batchnorm_act as bn_ops
+from vbt_tpu_torch.ops.batchnorm_act import (
+    BN_EPS,
+    KERNEL_ACTS,
+    batchnorm_act,
+    batchnorm_act_plain,
+)
+from vbt_tpu_torch.utils.profiling import launch_counter
 
-BN_EPS = 1e-3  # EfficientNet/flax BatchNorm epsilon used throughout
-BN_MOMENTUM = 0.99  # flax's convention: the weight of the old running value
 #: automl's ``act_type`` names: ReLU6 (the lite family), swish (x * sigmoid(x)).
 ACTIVATIONS = {"relu6": F.relu6, "swish": F.silu}
 
@@ -92,7 +103,8 @@ class Conv2dSame(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm on NCHW with flax's semantics, eps 1e-3, momentum 0.99.
+    """BatchNorm on NCHW with flax's semantics, eps 1e-3, momentum 0.99,
+    and the activation ``act`` after it (a function, None for none).
 
     In eval mode it normalizes with the running statistics. In train mode
     it normalizes with the batch's: mean and variance over N, H, W in
@@ -101,6 +113,16 @@ class BatchNorm(nn.Module):
     place, ``r <- 0.99 r + 0.01 batch``, the variance biased too.
     ``F.batch_norm(training=True)`` is not that: it stores the unbiased
     variance and reads its momentum the other way round.
+
+    Train mode takes the fused kernels (``ops/batchnorm_act.py``, the
+    activation inside them) for a float32 tensor on the card with no
+    ``reduce_stats`` and an activation of their ``KERNEL_ACTS``; float64,
+    bfloat16, the CPU, ``reduce_stats`` and another activation run the
+    plain version. This is the one place that decides.
+    ``BatchNorm.train_calls`` counts the train-mode calls on the card
+    (``"card"``) and those of them that took the kernels (``"fused"``),
+    registered as launch counters, so that a CUDA graph's replay adds the
+    calls it holds.
 
     ``reduce_stats``, unset but in the data-parallel train step
     (``parallel.data_parallel``), takes the float activations of this
@@ -115,19 +137,25 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.empty(channels))
         self.reduce_stats = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act=None) -> torch.Tensor:
         if not self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                                self.bias, training=False, eps=BN_EPS)
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        if self.reduce_stats is None:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
-        else:
-            mean, var = self.reduce_stats(xf)
-        with torch.no_grad():
-            self.running_mean.copy_(BN_MOMENTUM * self.running_mean + (1 - BN_MOMENTUM) * mean)
-            self.running_var.copy_(BN_MOMENTUM * self.running_var + (1 - BN_MOMENTUM) * var)
-        mul = torch.rsqrt(var + BN_EPS) * self.weight
-        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
-        return y.to(x.dtype)
+            y = F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                             self.bias, training=False, eps=BN_EPS)
+            return y if act is None else act(y)
+        args = (x, self.weight, self.bias, self.running_mean, self.running_var)
+        if self._takes_kernels(x, act):
+            return batchnorm_act(*args, act)
+        return batchnorm_act_plain(*args, act, self.reduce_stats)
+
+    def _takes_kernels(self, x: torch.Tensor, act) -> bool:
+        """Whether a train-mode call on ``x`` with ``act`` takes the kernels;
+        counted in :attr:`train_calls` where ``x`` is on the card."""
+        if x.device.type != bn_ops.KERNEL_DEVICE:
+            return False
+        fused = self.reduce_stats is None and x.dtype == torch.float32 and act in KERNEL_ACTS
+        BatchNorm.train_calls["card"] += 1
+        BatchNorm.train_calls["fused"] += fused
+        return fused
+
+
+launch_counter(BatchNorm, "train_calls", ("card", "fused"))

@@ -121,7 +121,8 @@ def tap_channels(variant: str) -> dict[int, int]:
 class BatchNormAct(nn.Module):
     """BatchNorm + an optional activation (flax ``BatchNormAct``; its inner
     ``BatchNorm_0`` is ``bn`` here). ``act`` is the function, ReLU6 by
-    default, or None for none."""
+    default, or None for none; ``bn`` applies it (inside its fused kernels
+    in train mode on the card)."""
 
     def __init__(self, channels: int, act=F.relu6):
         super().__init__()
@@ -129,8 +130,7 @@ class BatchNormAct(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(x)
-        return self.act(x) if self.act is not None else x
+        return self.bn(x, self.act)
 
 
 class MBConvBlock(nn.Module):

@@ -49,6 +49,6 @@ class PredictionHead(nn.Module):
             x = feats[lv]
             for i in range(self.repeats):
                 x = getattr(self, f"conv{i}")(x)
-                x = self.act(getattr(self, f"bn{i}_p{lv}")(x))
+                x = getattr(self, f"bn{i}_p{lv}")(x, self.act)
             outputs[lv] = self.final(x)
         return outputs

@@ -45,7 +45,8 @@ BUILD_DIR = DEFAULT_BUILD_DIR  # set by utils.cache.enable_persistent_cache
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 # csrc/<name>.cu -> <BUILD_DIR>/lib<name>-<key>.so
-SOURCES = ("nms", "fused_mbconv", "fused_mbconv_mma", "track_scan", "analysis_scan")
+SOURCES = ("nms", "fused_mbconv", "fused_mbconv_mma", "track_scan", "analysis_scan",
+           "batchnorm_act")
 # Flags of one source after the standard ones. The tracker and the analysis
 # scan round each multiply and add apart, as their plain versions' CPU
 # kernels do.
