@@ -3,13 +3,16 @@ step, written from the published description and not from the port.
 
 Sources: Tan, Pang and Le, "EfficientDet: Scalable and Efficient Object
 Detection" (arXiv:1911.09070); google/automl ``efficientdet/hparams_config.py``
-(``efficientdet-d3``), ``efficientdet/efficientdet_arch.py`` (BiFPN nodes,
-heads) and ``efficientnet/efficientnet_builder.py`` (the B series, its block
-strings, ``round_filters``, squeeze-excite). Every step is written out on
-tensors: TF's SAME padding, batch normalization, swish as ``x * sigmoid(x)``,
-the fast normalized fusion as the paper writes it (``sum_i (w_i / (eps +
-sum_j w_j)) x_i``, the weights through a ReLU), the separable convolutions. The weights are one
-flat dict, named as the checkpoints name them once read into torch
+(``efficientdet-d3``, ``efficientdet-d7x``), ``efficientdet/efficientdet_arch.py``
+(BiFPN nodes, heads) and ``efficientnet/efficientnet_builder.py`` (the B
+series, its block strings, ``round_filters``, squeeze-excite). Every step is
+written out on tensors: TF's SAME padding, batch normalization, swish as ``x
+* sigmoid(x)``, the BiFPN's fusion (``fpn_weight_method``) as the paper
+writes it, ``fastattn`` ``sum_i (w_i / (eps + sum_j w_j)) x_i`` with the
+weights through a ReLU (D3) or ``sum`` ``sum_i x_i`` with no weights (automl's
+``add_n``: D7x), the separable convolutions, and the pyramid over levels
+3..``max_level`` (7; 8 in D7x, whose P8 is one more max pool of P7). The
+weights are one flat dict, named as the checkpoints name them once read into torch
 (``backbone.g1_b0.se.reduce.weight``, OIHW kernels), so a state dict of
 any implementation of the same names can be fed in.
 
@@ -56,7 +59,6 @@ from benchmark.reference.train.targets import assign_targets
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
 FUSION_EPS = 1e-4
-LEVELS = (3, 4, 5, 6, 7)
 # efficientnet_builder.py's B0 table: repeats, kernel, strides, expansion,
 # input and output filters, squeeze-excite ratio.
 BLOCK_STRINGS = (
@@ -78,9 +80,16 @@ class DSpec:
     head_repeats: int
     anchor_scale: float = 4.0
     num_classes: int = 1
+    fusion: str = "fastattn"  # automl's fpn_weight_method: "fastattn" or "sum"
+    max_level: int = 7
+
+    @property
+    def levels(self) -> tuple[int, ...]:
+        return tuple(range(3, self.max_level + 1))
 
 
-D_SPECS = {"efficientdet_d3": DSpec(1.2, 1.4, 896, 160, 6, 4)}
+D_SPECS = {"efficientdet_d3": DSpec(1.2, 1.4, 896, 160, 6, 4),
+           "efficientdet_d7x": DSpec(2.0, 3.1, 1536, 384, 8, 5, fusion="sum", max_level=8)}
 
 
 @contextlib.contextmanager
@@ -207,23 +216,28 @@ class Net:
         return F.interpolate(x, size=like.shape[2:], mode="nearest")
 
     def node(self, name: str, inputs: list):
-        w = F.relu(self.w[f"{name}.edge_weight"])
-        w = w / (w.sum() + FUSION_EPS)
-        x = sum(inputs[i] * w[i] for i in range(len(inputs)))
+        if self.spec.fusion == "sum":
+            x = sum(inputs)
+        else:
+            w = F.relu(self.w[f"{name}.edge_weight"])
+            w = w / (w.sum() + FUSION_EPS)
+            x = sum(inputs[i] * w[i] for i in range(len(inputs)))
         x = self.sep_conv(f"{name}.conv", swish(x))
         return self.bn(f"{name}.conv.bn", x)
 
     def fpn(self, c: dict):
         p = {lv: self.lateral(f"fpn.lateral_p{lv}", c[lv]) for lv in (3, 4, 5)}
         p[6] = self.down(self.lateral("fpn.lateral_p6", c[5]))
-        p[7] = self.down(p[6])
+        top = self.spec.max_level
+        for lv in range(7, top + 1):
+            p[lv] = self.down(p[lv - 1])
         for r in range(self.spec.fpn_repeats):
-            cell, td = f"fpn.cell{r}", {7: p[7]}
-            for lv in (6, 5, 4, 3):
+            cell, td = f"fpn.cell{r}", {top: p[top]}
+            for lv in range(top - 1, 2, -1):
                 td[lv] = self.node(f"{cell}.td_p{lv}", [p[lv], self.up(td[lv + 1], p[lv])])
             out = {3: td[3]}
-            for lv in (4, 5, 6, 7):
-                ins = [p[lv], self.down(out[lv - 1])] if lv == 7 else [
+            for lv in range(4, top + 1):
+                ins = [p[lv], self.down(out[lv - 1])] if lv == top else [
                     p[lv], td[lv], self.down(out[lv - 1])]
                 out[lv] = self.node(f"{cell}.bu_p{lv}", ins)
             p = out
@@ -232,7 +246,7 @@ class Net:
     # -- heads --------------------------------------------------------------------
     def head(self, name: str, feats: dict, per_anchor: int):
         parts = []
-        for lv in LEVELS:
+        for lv in self.spec.levels:
             x = feats[lv]
             for i in range(self.spec.head_repeats):
                 x = swish(self.bn(f"{name}.bn{i}_p{lv}", self.sep_conv(f"{name}.conv{i}", x)))
@@ -270,7 +284,8 @@ def fast_fusion(inputs: list, edge_weight: torch.Tensor) -> torch.Tensor:
 
 
 def anchors(spec: DSpec, device) -> torch.Tensor:
-    cfg = AnchorConfig(input_size=spec.input_size, anchor_scale=spec.anchor_scale)
+    cfg = AnchorConfig(input_size=spec.input_size, anchor_scale=spec.anchor_scale,
+                       max_level=spec.max_level)
     return torch.from_numpy(generate_anchors(cfg)).to(device)
 
 

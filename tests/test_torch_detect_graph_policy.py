@@ -11,6 +11,9 @@ CPU (``runtime/graphs.py``, ``DetectionPipeline.detect_batch``).
   leaves every registered counter as it was and each replay advances it by
   the launches the graph holds, a fake kernel binding standing in for one
   a graph would take in (K3, K4);
+- the pool gauge: a named owner files the largest pool it captured under
+  its name (process-wide), an unnamed one files nothing, and closing a graph
+  leaves the reading;
 - a CPU pipeline never captures, and its ``detect.replay`` span never
   records;
 - ``detect_batch``'s graph path with the stand-in graph: the key holds the
@@ -168,6 +171,22 @@ def test_a_replay_advances_each_registered_counter_and_the_capture_leaves_them(m
     _, replays = _serve(calls, "k", 3, fn=chain)  # the capture call, then two replays
     assert replays == 3 and counters() == (10, {"odd": 5, "even": 5})
     assert {k: n for k, n in launch_counts().items() if "fake_scan" not in k} == others
+
+
+def test_a_named_owner_files_its_largest_pool(monkeypatch):
+    from vbt_tpu_torch.runtime import graphs
+
+    monkeypatch.setattr(graphs, "_POOL_BYTES", {})
+    use_cpu_graphs(monkeypatch)
+    named = GraphedCalls(1, STREAM, ReplaySpans(), "probe")
+    _serve(named, "big", 2, x=torch.arange(64.0))
+    # The stand-in's pool: its outputs (x * 2; x is a static input).
+    assert named["big"].pool_bytes == 64 * 4
+    _serve(named, "small", 2)  # evicts and closes the big key's graph
+    assert named["small"].pool_bytes == 4 * 4
+    assert graphs.pool_bytes() == {"probe": 64 * 4}
+    _serve(GraphedCalls(1, STREAM, ReplaySpans()), "k", 2)
+    assert graphs.pool_bytes() == {"probe": 64 * 4}
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,6 @@
-"""EfficientDet-D3 served on the card against the plain float32 reference
-(``tests/plain/effdet.py``), at its published size.
+"""EfficientDet-D3 and D7x served on the card against the plain float32
+reference (``tests/plain/effdet.py``), at their published sizes, and D7x's
+train step captured as one CUDA graph at B = 2.
 
 Card only (``cuda`` marker; skipped without a card). On the card, without
 the JAX test configuration (this file imports neither jax nor vbt_tpu):
@@ -13,7 +14,13 @@ frames (its own preprocess). ``gap`` is the worse over deltas and logits of
 the largest absolute difference over the reference's largest magnitude.
 The bf16 lane must read at most ``BOUND``; the int8 lane (calibrated on the
 same frames), the nearest precision below, must read more, so the bound
-tells the served precision from a lower one.
+tells the served precision from a lower one. D7x is held the same way at
+1536 px, B = 2, under ``BOUND_D7X``.
+
+D7x's train step (``DeviceDataTrainer.step`` at B = 2 on 1536 px plate
+frames, seeded weights) must capture: no capture-failure warning, no key
+served eagerly, and a train graph's private pool filed under ``pool_bytes``
+(printed, with the peak, under ``-s``).
 """
 
 import numpy as np
@@ -29,10 +36,16 @@ BATCH, SIZE = 4, 896
 # 0.0003 in both lanes): bf16 0.0192-0.0247, int8 0.1200-0.1253 over the
 # frame seeds 5, 6, 7 (NVIDIA H100 80GB HBM3, 700 W).
 BOUND = 0.05
+# D7x at 1536, B = 2, on seeded weights, between the lanes' readings (the
+# deltas again; logits 0.0003 in both): bf16 0.0233-0.0265, int8
+# 0.1280-0.1335 over the frame seeds 5, 6, 7 (NVIDIA H100 80GB HBM3, 700 W).
+BOUND_D7X = 0.05
+SIZES = {"efficientdet_d3": (BATCH, SIZE), "efficientdet_d7x": (2, 1536)}
 
 
-def gaps(lane: str, seed: int = 5) -> dict:
-    """The lane's ``gap`` and its parts on ``seed``'s frames."""
+def gaps(lane: str, seed: int = 5, name: str = "efficientdet_d3") -> dict:
+    """The lane's ``gap`` and its parts on ``seed``'s frames, for the spec
+    ``name``."""
     from plain import effdet as plain
 
     from benchmark.reference.model.preprocess import preprocess_frames
@@ -40,17 +53,18 @@ def gaps(lane: str, seed: int = 5) -> dict:
     from vbt_tpu_torch.models import get_model_spec
     from vbt_tpu_torch.runtime.pipeline import DetectionPipeline
 
-    spec = get_model_spec("efficientdet_d3")
+    batch, size = SIZES[name]
+    spec = get_model_spec(name)
     weights = DetectionPipeline.init_variables(spec, seed=0)
-    frames = plate_frames(BATCH, SIZE, SIZE, seed=seed)
+    frames = plate_frames(batch, size, size, seed=seed)
     pipe = DetectionPipeline(spec, weights, device="cuda")
     if lane == "int8":
         pipe = pipe.calibrate(frames)
     with torch.inference_mode():
         served = [t.float() for t in pipe.forward(frames)]
-        images = preprocess_frames(torch.from_numpy(frames).cuda(), SIZE)
+        images = preprocess_frames(torch.from_numpy(frames).cuda(), size)
         with plain.tf32_off():
-            want = plain.forward(plain.D_SPECS["efficientdet_d3"],
+            want = plain.forward(plain.D_SPECS[name],
                                  {k: v.cuda() for k, v in weights.items()}, images)[:2]
     out = {}
     for name, s, w in zip(("deltas", "logits"), served, want):
@@ -78,3 +92,51 @@ def test_the_int8_lane_does_not(card):
     got = gaps("int8")
     assert got["gap"] > BOUND, got
     assert np.isfinite(got["gap"])
+
+
+def test_the_served_bf16_d7x_holds_the_reference(card):
+    got = {seed: gaps("bf16", seed, "efficientdet_d7x") for seed in (5, 6, 7)}
+    print("d7x bf16", got)
+    assert all(g["gap"] <= BOUND_D7X for g in got.values()), got
+
+
+def test_the_d7x_int8_lane_does_not(card):
+    got = {seed: gaps("int8", seed, "efficientdet_d7x") for seed in (5, 6, 7)}
+    print("d7x int8", got)
+    assert all(g["gap"] > BOUND_D7X and np.isfinite(g["gap"]) for g in got.values()), got
+
+
+def test_the_d7x_train_step_captures_at_batch_2(card):
+    import warnings
+
+    from vbt_tpu_torch.io.synthetic import plate_boxes, plate_frames
+    from vbt_tpu_torch.models import get_model_spec
+    from vbt_tpu_torch.runtime.graphs import pool_bytes
+    from vbt_tpu_torch.train.data import DetectionDataset
+    from vbt_tpu_torch.train.fused import DeviceDataTrainer
+    from vbt_tpu_torch.train.train_step import Trainer
+
+    spec, n, b = get_model_spec("efficientdet_d7x"), 8, 2
+    boxes, valid = np.zeros((n, 4, 4), np.float32), np.zeros((n, 4), bool)
+    boxes[:, 0], valid[:, 0] = plate_boxes(n, spec.input_size, spec.input_size, period=9), True
+    ds = DetectionDataset(plate_frames(n, spec.input_size, spec.input_size, seed=4, period=9),
+                          boxes, valid, [str(i) for i in range(n)])
+    trainer = Trainer(spec, base_lr=0.0025, total_steps=400, warmup_steps=20, device="cuda")
+    ddt = DeviceDataTrainer(trainer, ds, None, mosaic_p=0.5)
+    state = trainer.init_state(seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.reset_peak_memory_stats()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(4):
+            state, metrics = ddt.step(state, torch.arange(b * i, b * i + b, device="cuda") % n,
+                                      gen, 0.5)
+    torch.cuda.synchronize()
+    assert not [w for w in caught if "capture failed" in str(w.message)], caught
+    assert ddt.graphs.failures == 0 and not ddt.graphs.refused
+    graph = next(iter(ddt.graphs.graphs.values()))
+    assert graph is not None and graph.pool_bytes > 0
+    assert pool_bytes()["train"] >= graph.pool_bytes
+    assert np.isfinite(float(metrics["loss"]))
+    print(f"d7x train graph pool {graph.pool_bytes / 1e9:.3f} GB, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")

@@ -6,8 +6,9 @@ JAX test configuration (this file imports neither jax nor vbt_tpu):
 
     python -m pytest --noconftest -m cuda tests/test_torch_train_graph.py
 
-For lite0 (320 px, B = 16) and a small D spec (the B3 backbone with
-squeeze-excite and swish, BiFPN 16 x 2 with fast fusion, 128 px, B = 4),
+For lite0 (320 px, B = 16) and two small D specs (the B3 backbone with
+squeeze-excite and swish, BiFPN 16 x 2 with fast fusion, 128 px, B = 4; the
+B0 backbone with D7x's six-level BiFPN, P3-P8, and sum fusion, likewise),
 random-init weights, from one state, the same index batches and generator
 seed, with ``cudnn.deterministic`` on: six graphed steps (eager on the
 trainer's stream, the capture and its first replay, four replays,
@@ -30,7 +31,10 @@ pytestmark = pytest.mark.cuda
 
 STEPS = 6
 MOSAIC = [0.5] * (STEPS - 1) + [0.0]
-SPECS = {"lite0": (None, 16), "small_d": (("small_d", "b3", 128, 16, 2, 2), 4)}
+SPECS = {"lite0": (None, 16), "small_d": (("small_d", "b3", 128, 16, 2, 2), 4),
+         "small_d7x": (("small_d7x", "b0", 128, 16, 2, 2), 4)}
+# The small D specs' fusion and pyramid: D3's, and D7x's six levels with sums.
+D_KWARGS = {"small_d": dict(fusion="fastattn"), "small_d7x": dict(fusion="sum", max_level=8)}
 
 
 @pytest.fixture
@@ -59,7 +63,7 @@ def _spec(name):
     args, _ = SPECS[name]
     if args is None:
         return get_model_spec("efficientdet_lite0")
-    return ModelSpec(*args, anchor_scale=4.0, act="swish", fusion="fastattn")
+    return ModelSpec(*args, anchor_scale=4.0, act="swish", **D_KWARGS[name])
 
 
 def _dataset(size, n=32):

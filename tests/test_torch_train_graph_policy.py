@@ -77,7 +77,7 @@ def _trainer(freeze=(), mesh=None):
 def _graphed(trainer):
     ddt = DeviceDataTrainer(trainer, _dataset(), None, mosaic_p=0.5, jitter=JITTER)
     assert ddt.graphs is None  # a CPU trainer
-    ddt.graphs = GraphedCalls(1, STREAM, fused.REPLAY_SPANS)
+    ddt.graphs = GraphedCalls(1, STREAM, fused.REPLAY_SPANS, "train")
     return ddt
 
 

@@ -8,6 +8,8 @@ graph path's CPU tests (detect and train).
   timer of its own, its launches taken back: a replay runs no Python) and
   writes its tensors into the captured outputs; ``Graph.replay`` then adds
   the launches the capture counted.
+- Its pool is the bytes of the outputs it captured (a CUDA graph's private
+  pool holds them, and the chain's intermediates besides).
 - ``CpuGraph.made`` counts the graphs made, ``closed`` marks a closed one.
 
 :func:`use_cpu_graphs` puts it in place of ``Graph``, and an eager
@@ -36,6 +38,9 @@ class CpuGraph(graphs.Graph):
         for g, state in zip(self.generators, states):
             g.set_state(state)
         return out
+
+    def _pool_bytes(self):
+        return sum(t.nbytes for t in self.outputs)
 
     def _launch(self):
         before = launch_counts()

@@ -1,4 +1,4 @@
-"""Train EfficientDet barbell detectors (Lite0-2, and D3 from its seeded init).
+"""Train EfficientDet barbell detectors (Lite0-2, and D3 and D7x from their seeded init).
 
 Port of ``vbt_tpu.cli.train`` with its flags and defaults: the VOC layout
 ``data/{train,valid,test}``, the export names ``{arch}[_whole]``, the peak
@@ -222,7 +222,8 @@ def make_command():
     @click.option("--export_dir", default="models", show_default=True)
     @click.option("--architecture", default="efficientdet_lite0", show_default=True,
                   type=click.Choice(["efficientdet_lite0", "efficientdet_lite1",
-                                     "efficientdet_lite2", "efficientdet_d3"]))
+                                     "efficientdet_lite2", "efficientdet_d3",
+                                     "efficientdet_d7x"]))
     @click.option("--epochs", default=50, show_default=True, type=int)
     @click.option("--batch_size", default=4, show_default=True, type=int)
     @click.option("--train_whole_model/--heads_only", default=True, show_default=True)

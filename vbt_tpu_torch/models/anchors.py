@@ -1,7 +1,8 @@
 """Multi-scale anchors (numpy), box decode and encode (torch).
 
 Copy of ``vbt_tpu.models.anchors``: RetinaNet-style anchors over pyramid
-levels 3-7, 3 octave scales x 3 aspect ratios per cell (9 anchors/cell),
+levels 3-7 (to ``max_level`` where a spec's pyramid is taller: 3-8 in
+EfficientDet-D7x), 3 octave scales x 3 aspect ratios per cell (9 anchors/cell),
 level-major, row-major, per-cell anchor fastest — the order the detector's
 head flatten produces (:mod:`vbt_tpu_torch.models.efficientdet`).
 """

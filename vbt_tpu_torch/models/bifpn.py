@@ -8,9 +8,16 @@ BN. Upsampling is the JAX package's nearest index map; downsampling is a
 
 EfficientDet-D0..D5 fuse by automl's ``fastattn`` (:class:`FastFuseNode`):
 ``sum_i relu(w_i) x_i / (sum_j relu(w_j) + 1e-4)``, one learnable weight an
-input (``edge_weight``, initialised to 1), and swish in place of ReLU6.
-Both are chosen when the module is built (``act``, ``fusion``); a
-``"sum"`` node runs the forward it always ran.
+input (``edge_weight``, initialised to 1), and swish in place of ReLU6;
+D6-D7x sum their inputs (automl's ``sum``) under swish. Both are chosen
+when the module is built (``act``, ``fusion``); a ``"sum"`` node runs the
+forward it always ran.
+
+The pyramid's levels are fixed when the module is built too: P3..P7 by
+default, more where a spec asks for them (EfficientDet-D7x: P3..P8), each
+level above P6 a further max pool of the one below. A built module loops
+over its own levels; levels 3-7 keep their names (``td_p*``, ``bu_p*``),
+so every five-level checkpoint loads as before.
 """
 
 from __future__ import annotations
@@ -112,50 +119,56 @@ def _node(channels: int, n_inputs: int, act, fusion: str) -> FuseNode:
 
 
 class BiFPNCell(nn.Module):
-    """One top-down + bottom-up pass over levels 3..7."""
+    """One top-down + bottom-up pass over ``levels`` (3..7 by default)."""
 
-    def __init__(self, channels: int, act=F.relu6, fusion: str = "sum"):
+    def __init__(self, channels: int, act=F.relu6, fusion: str = "sum",
+                 levels: tuple[int, ...] = LEVELS):
         super().__init__()
-        for lv in LEVELS[:-1]:
+        self.levels = tuple(levels)
+        top = self.levels[-1]
+        for lv in self.levels[:-1]:
             self.add_module(f"td_p{lv}", _node(channels, 2, act, fusion))
-        for lv in LEVELS[1:]:
-            self.add_module(f"bu_p{lv}", _node(channels, 2 if lv == MAX_LEVEL else 3, act,
-                                               fusion))
+        for lv in self.levels[1:]:
+            self.add_module(f"bu_p{lv}", _node(channels, 2 if lv == top else 3, act, fusion))
 
     def forward(self, feats: dict[int, torch.Tensor]) -> dict[int, torch.Tensor]:
-        td = {MAX_LEVEL: feats[MAX_LEVEL]}
-        for lv in reversed(LEVELS[:-1]):
+        bottom, top = self.levels[0], self.levels[-1]
+        td = {top: feats[top]}
+        for lv in reversed(self.levels[:-1]):
             up = _upsample2x(td[lv + 1], feats[lv].shape[2:])
             td[lv] = getattr(self, f"td_p{lv}")([feats[lv], up])
-        out = {MIN_LEVEL: td[MIN_LEVEL]}
-        for lv in LEVELS[1:]:
+        out = {bottom: td[bottom]}
+        for lv in self.levels[1:]:
             down = _downsample2x(out[lv - 1])
-            inputs = [feats[lv], down] if lv == MAX_LEVEL else [feats[lv], td[lv], down]
+            inputs = [feats[lv], down] if lv == top else [feats[lv], td[lv], down]
             out[lv] = getattr(self, f"bu_p{lv}")(inputs)
         return out
 
 
 class BiFPN(nn.Module):
-    """Lateral resampling of C3..C5, P6/P7 synthesis from C5, ``repeats``
-    cells; ``act`` (a function) and ``fusion`` (one of :data:`FUSIONS`)
-    choose the nodes."""
+    """Lateral resampling of C3..C5, synthesis of P6 and the levels above
+    from C5 (a lateral, then one max pool a level), ``repeats`` cells over
+    ``levels`` (P3..P7 by default); ``act`` (a function) and ``fusion`` (one
+    of :data:`FUSIONS`) choose the nodes."""
 
     def __init__(self, tap_channels: dict[int, int], channels: int, repeats: int,
-                 act=F.relu6, fusion: str = "sum"):
+                 act=F.relu6, fusion: str = "sum", levels: tuple[int, ...] = LEVELS):
         super().__init__()
         if fusion not in FUSIONS:
             raise ValueError(f"fusion must be one of {FUSIONS}, got {fusion!r}")
+        self.levels = tuple(levels)
         for lv in (3, 4, 5):
             self.add_module(f"lateral_p{lv}", ChannelResample(tap_channels[lv], channels))
         self.lateral_p6 = ChannelResample(tap_channels[5], channels)
         self.repeats = repeats
         for r in range(repeats):
-            self.add_module(f"cell{r}", BiFPNCell(channels, act, fusion))
+            self.add_module(f"cell{r}", BiFPNCell(channels, act, fusion, self.levels))
 
     def forward(self, backbone_feats: dict[int, torch.Tensor]) -> dict[int, torch.Tensor]:
         feats = {lv: getattr(self, f"lateral_p{lv}")(backbone_feats[lv]) for lv in (3, 4, 5)}
         feats[6] = _downsample2x(self.lateral_p6(backbone_feats[5]))
-        feats[7] = _downsample2x(feats[6])
+        for lv in self.levels[4:]:
+            feats[lv] = _downsample2x(feats[lv - 1])
         for r in range(self.repeats):
             feats = getattr(self, f"cell{r}")(feats)
         return feats

@@ -2,7 +2,8 @@
 
 Port of ``vbt_tpu.models.heads``: ``repeats`` separable convs whose weights
 are shared across pyramid levels, each followed by a BatchNorm of its own
-per level (``bn{i}_p{lv}``) and ReLU6 (swish in EfficientDet-D, chosen
+per level (``bn{i}_p{lv}``, over the levels the module is built for, P3..P7
+unless the spec reaches higher) and ReLU6 (swish in EfficientDet-D, chosen
 when the module is built), then a shared final separable conv projecting to
 ``num_anchors * out_per_anchor`` channels.
 """
@@ -33,13 +34,13 @@ class PredictionHead(nn.Module):
     """Head applied to every pyramid level; returns per-level NCHW maps."""
 
     def __init__(self, out_per_anchor: int, num_anchors: int, channels: int, repeats: int,
-                 act=F.relu6):
+                 act=F.relu6, levels: tuple[int, ...] = LEVELS):
         super().__init__()
         self.repeats = repeats
         self.act = act
         for i in range(repeats):
             self.add_module(f"conv{i}", _SharedSepConv(channels, channels))
-            for lv in LEVELS:
+            for lv in levels:
                 self.add_module(f"bn{i}_p{lv}", BatchNorm(channels))
         self.final = _SharedSepConv(channels, out_per_anchor * num_anchors)
 

@@ -23,10 +23,16 @@ their own (they time no call); a replay records the owner's
 
 A :class:`Graph` hands back its result with the tensors copied out of its
 pool, which the next replay overwrites, so that a caller may hold the
-results of several calls. Every launch counter a kernel binding registered
-(:func:`~vbt_tpu_torch.utils.profiling.launch_counter`) grows on each
-replay by the launches the graph holds, as the eager chain's launches grow
-it; the capture, which runs nothing, leaves them as they were.
+results of several calls. Its capture measures that pool, the bytes of the
+allocator's segments under the graph's pool id (``pool_bytes``): the
+memory a graphed chain holds on the card between replays, a train step's
+activations. :func:`pool_bytes` keeps, for each owner's ``name``
+(``"detect"``, ``"train"``), the largest pool captured under it in the
+process; closing a graph leaves the reading. Every launch counter a kernel
+binding registered (:func:`~vbt_tpu_torch.utils.profiling.launch_counter`)
+grows on each replay by the launches the graph holds, as the eager chain's
+launches grow it; the capture, which runs nothing, leaves them as they
+were.
 """
 
 from __future__ import annotations
@@ -41,6 +47,16 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_unflatten
 
 from vbt_tpu_torch.utils.profiling import StageTimer, add_launches, launch_counts, span
+
+# GraphedCalls name -> the largest private pool, in bytes, of a graph
+# captured under it in this process.
+_POOL_BYTES: dict[str, int] = {}
+
+
+def pool_bytes() -> dict[str, int]:
+    """The largest captured graph's private pool a :class:`GraphedCalls`
+    name, in bytes (process-wide; names with no capture are absent)."""
+    return dict(_POOL_BYTES)
 
 
 def run_on(stream: torch.cuda.Stream, fn: Callable[[], object]):
@@ -96,12 +112,13 @@ class Graph:
         self.stream = stream
         self.graph: torch.cuda.CUDAGraph | None = None
         self.launches: dict[str, int] = {}
+        self.pool_bytes = 0
         self.leaves = self.spec = self.aliases = self.outputs = self.output_groups = None
 
     def capture(self, fn: Callable[[list, list], object]) -> None:
         """Record ``fn(inputs, scalars)`` on the static tensors. Nothing
         runs: the launch counters are put back, and the launches kept for
-        :meth:`replay`."""
+        :meth:`replay`; ``pool_bytes`` is the private pool it left."""
         before = launch_counts()
         try:
             out = self._record(fn)
@@ -115,6 +132,7 @@ class Graph:
         self.outputs = [t for t, a in zip(self.leaves, self.aliases)
                         if isinstance(t, torch.Tensor) and a is None]
         self.output_groups = _dtype_groups(self.outputs)
+        self.pool_bytes = self._pool_bytes()
 
     def _record(self, fn: Callable[[list, list], object]):
         """The CUDA capture: the generators do not advance, and
@@ -127,6 +145,13 @@ class Graph:
             out = fn(self.inputs, self.scalars)
         self.graph = graph
         return out
+
+    def _pool_bytes(self) -> int:
+        """The bytes of the allocator's segments in the graph's private
+        pool (``torch.cuda.memory_snapshot``'s ``segment_pool_id``)."""
+        pool = tuple(self.graph.pool())
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
 
     def load(self, inputs: list, scalars) -> None:
         """Copy ``inputs`` into the static tensors and fill the scalars, on
@@ -180,9 +205,12 @@ def _span(name: str | None):
 
 class GraphedCalls:
     """One owner's graphs, at most ``capacity`` keys, captured on
-    ``stream``, and the protocol that serves its calls (module docstring)."""
+    ``stream``, and the protocol that serves its calls (module docstring);
+    ``name`` files their pools' sizes under :func:`pool_bytes`."""
 
-    def __init__(self, capacity: int, stream: torch.cuda.Stream, spans: ReplaySpans):
+    def __init__(self, capacity: int, stream: torch.cuda.Stream, spans: ReplaySpans,
+                 name: str | None = None):
+        self.name = name
         self.capacity = capacity
         self.stream = stream
         self.spans = spans
@@ -237,6 +265,8 @@ class GraphedCalls:
                           f"{err}", RuntimeWarning, stacklevel=3)
             return None
         self.graphs[key] = graph
+        if self.name is not None:
+            _POOL_BYTES[self.name] = max(_POOL_BYTES.get(self.name, 0), graph.pool_bytes)
         return graph
 
     def __getitem__(self, key: Hashable) -> Graph | None:

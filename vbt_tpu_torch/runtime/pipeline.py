@@ -152,7 +152,8 @@ class DetectionPipeline:
         self.model = q.cast_model(model.eval(), self.device, self.dtype)
         self.anchors = torch.from_numpy(generate_anchors(spec.anchor_config)).to(self.device)
         self.rings: OrderedDict[tuple[int, ...], StagingRing] = OrderedDict()
-        self.graphs = (GraphedCalls(MAX_RINGS, torch.cuda.Stream(self.device), REPLAY_SPANS)
+        self.graphs = (GraphedCalls(MAX_RINGS, torch.cuda.Stream(self.device), REPLAY_SPANS,
+                                    "detect")
                        if self.device.type == "cuda" else None)
 
     @classmethod

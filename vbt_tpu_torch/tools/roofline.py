@@ -147,7 +147,7 @@ def analytic_bytes(batch=BATCH, size=320):
 
     heads = 0
     for out_per_anchor in (4, spec.num_classes):  # box, class
-        for lv in range(3, 8):
+        for lv in spec.levels:
             hw_l = lv_hw[lv]
             for _ in range(spec.head_repeats):
                 heads += fuse_node(hw_l, 1)
@@ -157,7 +157,7 @@ def analytic_bytes(batch=BATCH, size=320):
 
     # Postprocess: read the flattened (B, N, 4) + (B, N, 1) maps and the
     # anchors, then the top-512 candidates' working set a few times.
-    n_anchors = sum(lv_hw[lv] ** 2 * ANCHORS_PER_CELL for lv in range(3, 8))
+    n_anchors = sum(lv_hw[lv] ** 2 * ANCHORS_PER_CELL for lv in spec.levels)
     stages["postprocess"] = (n_anchors * 5 * ACT * b + n_anchors * 4 * W
                              + b * 512 * 6 * W * 4)
     stages["_n_anchors"] = n_anchors
@@ -195,8 +195,8 @@ def analytic_flops(batch=BATCH, size=320, name="efficientdet_lite0"):
             cin = g.out_ch
         if gi in TAPS:
             lv_hw[TAPS[gi]] = hw
-    lv_hw[6] = math.ceil(lv_hw[5] / 2)
-    lv_hw[7] = math.ceil(lv_hw[6] / 2)
+    for lv in spec.levels[3:]:  # P6 and above: one stride-2 pool a level
+        lv_hw[lv] = math.ceil(lv_hw[lv - 1] / 2)
 
     ch = spec.fpn_channels
 
@@ -209,13 +209,14 @@ def analytic_flops(batch=BATCH, size=320, name="efficientdet_lite0"):
               for lv in (3, 4, 5) if c_taps[lv] != ch)
     if c_taps[5] != ch:
         fpn += _conv_flops(lv_hw[5], c_taps[5], ch, 1, 1, b)[0]  # lateral_p6
-    # A cell: a fuse node at levels 3..6 top-down and 4..7 bottom-up.
-    cell = sum(sep_conv(lv_hw[lv], ch) for lv in (6, 5, 4, 3, 4, 5, 6, 7))
+    # A cell: a fuse node at every level but the top top-down and every
+    # level but the bottom bottom-up (3..6 and 4..7 in a five-level pyramid).
+    cell = sum(sep_conv(lv_hw[lv], ch) for lv in spec.levels[:-1] + spec.levels[1:])
     fpn += spec.fpn_repeats * cell
 
     heads = 0
     for out_per_anchor in (4, spec.num_classes):
-        for lv in range(3, 8):
+        for lv in spec.levels:
             heads += spec.head_repeats * sep_conv(lv_hw[lv], ch)
             heads += sep_conv(lv_hw[lv], out_per_anchor * ANCHORS_PER_CELL)
     return {"preprocess": 0, "backbone": backbone, "bifpn": fpn, "heads": heads,

@@ -62,7 +62,7 @@ class DeviceDataTrainer:
         self._valid = self._upload(valid_ds) if valid_ds is not None and len(valid_ds) else None
         graphed = (trainer.device.type == "cuda" and trainer.mesh is None
                    and trainer.state_dtype == torch.float32)
-        self.graphs = (GraphedCalls(1, torch.cuda.Stream(trainer.device), REPLAY_SPANS)
+        self.graphs = (GraphedCalls(1, torch.cuda.Stream(trainer.device), REPLAY_SPANS, "train")
                        if graphed else None)
         params = set(trainer.param_keys)
         self._stat_keys = [k for k in trainer.model.state_dict() if k not in params]
